@@ -1,0 +1,428 @@
+"""Device-resident receiver: audio in, compact events and bytes out.
+
+Counterpart of minimodem_tpu/ops/device_rx.py, megakernel route only.
+One call runs the whole receive pipeline on the device:
+
+  wire   : the host uploads int16 / float32 / raw u8 (G.711, PCM8) samples
+           and the device normalizes them (normalize_input, expand_wire)
+  K1     : the fused scorer -> per-offset score planes (ops/fused_score.py)
+  K2     : the carrier state machine over the planes -> events, bytes and
+           the streaming carry (ops/mega_rx.py)
+
+Only the event log (carrier transitions) and the decoded bytes return to
+the host, where rx/engine.py renders them.  Decisions replay the
+reference's sequential receive loop (reference: src/minimodem.c:1137-1463,
+src/fsk.c:449-538) and match the JAX package event for event.
+
+Geometries the megakernel does not serve (float64 scoring, more than 8
+data bits, more than 32 frame bits, scan windows over 16384 samples)
+raise NotImplementedError: the JAX package's XLA while_loop receiver is
+not ported (ROADMAP queue 1 item 8).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import ModemConfig
+from .demod import DemodGeometry, geometry_from_config
+
+FSK_ANALYZE_NSTEPS = 3          # reference: src/minimodem.c:1248
+FSK_ANALYZE_NSTEPS_FINE = 8     # reference: src/minimodem.c:1365
+FSK_MAX_NOCONFIDENCE_BITS = 20  # reference: src/minimodem.c:1290
+
+# event types in the output stream
+EV_FRAME = 0
+EV_CARRIER = 1
+EV_NOCARRIER = 2
+# flag folded into the device event-type word (host expands to EV_CARRIER)
+EV_FLAG_ACQUIRED = 1 << 8
+
+
+def unpack_events(ev_8e: np.ndarray, n: int):
+    """Unpack a device event log [8, E] uint32 (columns = records) into the
+    host event-stream form (ev_type [M] i32, ev_pay [M, 6] u32), expanding
+    ACQUIRED-flagged frames into a CARRIER event followed by the frame."""
+    rec = np.ascontiguousarray(ev_8e[:, :n].T)          # [n, 8]
+    types = (rec[:, 6] & 0xFF).astype(np.int32)
+    acq = (rec[:, 6] & EV_FLAG_ACQUIRED) != 0
+    m = n + int(acq.sum())
+    out_t = np.empty(m, np.int32)
+    out_p = np.zeros((m, 6), np.uint32)
+    ins = np.cumsum(acq) - acq.astype(np.int64)          # exclusive prefix
+    idx = np.arange(n) + ins + acq                        # record positions
+    out_t[idx] = types
+    out_p[idx] = rec[:, :6]
+    car_idx = idx[acq] - 1
+    out_t[car_idx] = EV_CARRIER
+    out_p[car_idx] = 0
+    return out_t, out_p
+
+
+def _scan_order(try_first: int, try_max: int, try_step: int) -> list:
+    """The center-out candidate order of fsk_find_frame
+    (reference: src/fsk.c:477-502), as a static offset list."""
+    out = []
+    j = 0
+    while True:
+        up = 1 if (j % 2) else -1
+        t = try_first + up * ((j + 1) // 2) * try_step
+        j += 1
+        if t >= try_max:
+            break
+        if t < 0:
+            continue
+        out.append(t)
+        if j > 8192:
+            break
+    return out
+
+
+def device_rx_key(cfg: ModemConfig, precision: str = "auto"):
+    """Hashable snapshot of everything the receiver depends on (the same
+    tuple as the JAX package's device_rx_key)."""
+    geo = geometry_from_config(cfg, precision)
+    return (
+        cfg.sample_rate,
+        int(np.float32(cfg.data_rate).view(np.uint32)),
+        cfg.n_data_bits,
+        cfg.nstartbits,
+        int(np.float32(cfg.nstopbits).view(np.uint32)),
+        geo.b_mark, geo.b_space, geo.fftsize, geo.nb,
+        int(np.float32(geo.magscalar).view(np.uint32)),
+        geo.bit_begin, geo.n_bits, geo.req_data, geo.req_sync, geo.use_f64,
+        cfg.frame_nsamples, cfg.nsamples_overscan, cfg.expect_nsamples,
+        cfg.msb_first, cfg.do_rx_sync, cfg.sync_byte,
+    )
+
+
+CARRY_FIELDS = (
+    "pos", "carrier", "noconfidence", "track_amplitude", "peak_confidence",
+    "conf_total", "ampl_total", "nframes", "carrier_nsamples", "stop",
+)
+
+
+def zero_carry(batch: int) -> dict:
+    """Fresh per-stream state machine carry (all counters zero)."""
+    zf = np.zeros(batch, np.float32)
+    zi = np.zeros(batch, np.int32)
+    zb = np.zeros(batch, bool)
+    return {
+        "pos": zi.copy(), "carrier": zb.copy(), "noconfidence": zi.copy(),
+        "track_amplitude": zf.copy(), "peak_confidence": zf.copy(),
+        "conf_total": zf.copy(), "ampl_total": zf.copy(),
+        "nframes": zi.copy(), "carrier_nsamples": zi.copy(),
+        "stop": zb.copy(),
+    }
+
+
+def geo_from_key(cfg_key) -> DemodGeometry:
+    (sample_rate, data_rate_bits, n_data_bits, nstartbits, nstopbits_bits,
+     b_mark, b_space, fftsize, nb, magscalar_bits, bit_begin, n_bits,
+     req_data, req_sync, use_f64, frame_nsamples, overscan,
+     expect_nsamples, msb_first, do_rx_sync, sync_byte) = cfg_key
+    return DemodGeometry(
+        nb=nb, fftsize=fftsize, b_mark=b_mark, b_space=b_space,
+        magscalar=float(np.uint32(magscalar_bits).view(np.float32)),
+        bit_begin=bit_begin, n_bits=n_bits, req_data=req_data,
+        req_sync=req_sync, use_f64=use_f64)
+
+
+def normalize_input(x: torch.Tensor, input_dtype: str) -> torch.Tensor:
+    """Device-side sample normalization for compact wire encodings.
+
+    "int16" is x/32768 (the libsndfile convention the reference relies
+    on, sf_readf_float in src/simpleaudio-sndfile.c:49); "ulaw" / "alaw"
+    / "pcm8" expand one byte per sample with the same integer algebra as
+    the host tables (sigio/containers.py _ULAW_DEC/_ALAW_DEC), so device
+    values are bit-identical to a host-expanded float read."""
+    scale = 32768.0
+    if input_dtype == "int16":
+        return x.to(torch.float32) / scale
+    if input_dtype == "ulaw":
+        u = ~x.to(torch.int32) & 0xFF
+        t = (((u & 0x0F) << 3) + 0x84) << ((u & 0x70) >> 4)
+        v = torch.where((u & 0x80) != 0, 0x84 - t, t - 0x84)
+        return v.to(torch.float32) / scale
+    if input_dtype == "alaw":
+        a = x.to(torch.int32) ^ 0x55
+        t = (a & 0x0F) << 4
+        seg = (a & 0x70) >> 4
+        t = torch.where(seg == 0, t + 8,
+                        torch.where(seg == 1, t + 0x108,
+                                    (t + 0x108)
+                                    << torch.clamp(seg - 1, min=0)))
+        v = torch.where((a & 0x80) != 0, t, -t)
+        return v.to(torch.float32) / scale
+    if input_dtype == "pcm8":                # unsigned WAV PCM8
+        v = (x.to(torch.int32) - 128) << 8
+        return v.to(torch.float32) / scale
+    return x.to(torch.float32)
+
+
+# wire dtypes that arrive as raw uint8 and expand on device
+U8_ENCODINGS = ("ulaw", "alaw", "pcm8")
+
+# pad/fill byte per encoding: u-law 0xFF and PCM8 0x80 decode to exactly
+# 0.0; A-law has no zero codeword (0xD5 decodes to +8), so expand_wire
+# also masks expanded u8 wires to exact 0.0 past each stream's total
+# (reference zero-refill: src/minimodem.c:1166-1174)
+PAD_BYTE = {"ulaw": 0xFF, "alaw": 0xD5, "pcm8": 0x80}
+
+
+def expand_wire(x: torch.Tensor, total: torch.Tensor, input_dtype: str,
+                extra: int = 0) -> torch.Tensor:
+    """Expand a raw-u8 wire buffer [B, T] on device and zero every
+    position >= the stream's real-sample end (total + extra).
+
+    extra: count of REAL samples past `total` (a segmented decode feeds
+    lookahead beyond the scan bound, which must not be clipped); 0 for
+    one-shot calls, where `total` IS the end of real data."""
+    v = normalize_input(x, input_dtype)
+    idx = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    bound = total.to(torch.int32) + extra
+    return torch.where(idx[None, :] < bound[:, None], v,
+                       torch.zeros((), dtype=v.dtype, device=v.device))
+
+
+def alloc_wire(shape, samples_dtype, in_encoding: str = None):
+    """Zero-signal-filled host buffer for a wire upload: np.zeros for
+    int16/float32, the encoding's silence codeword for raw u8."""
+    if in_encoding:
+        return np.full(shape, PAD_BYTE[in_encoding], np.uint8)
+    return np.zeros(shape, samples_dtype)
+
+
+def wire_dtype(samples: np.ndarray, in_encoding: str = None) -> str:
+    """Wire encoding of a host sample array: an explicit u8 encoding
+    (U8_ENCODINGS) wins; else int16/float32 by dtype."""
+    if in_encoding:
+        if in_encoding not in U8_ENCODINGS:
+            raise NotImplementedError(
+                f"wire encoding {in_encoding!r} is not ported (delta-bitpack "
+                "wires are ROADMAP queue 1 item 12)")
+        if samples.dtype != np.uint8:
+            raise ValueError(f"{in_encoding} wire needs uint8 samples, got "
+                             f"{samples.dtype}")
+        return in_encoding
+    return "int16" if samples.dtype == np.int16 else "float32"
+
+
+def _round_up_pow2(n: int, floor: int = 1 << 14) -> int:
+    """Bucket sizes to limit distinct shapes without inflating memory:
+    powers of two up to 256K, then multiples of 256K."""
+    v = floor
+    while v < n and v < (1 << 18):
+        v *= 2
+    if v < n:
+        step = 1 << 18
+        v = ((n + step - 1) // step) * step
+    return v
+
+
+def make_score_packer_planes(cfg_key, t_total: int, input_dtype: str):
+    """fn x[B, t_total + halo] (wire dtype) -> score planes
+    [B, n_planes, t_total] int32 through K1 (ops/fused_score.py).
+    Returns (fn, n_planes)."""
+    from .fused_score import FusedScorer
+
+    scorer = FusedScorer(geo_from_key(cfg_key))
+
+    def score_planes(x: torch.Tensor) -> torch.Tensor:
+        return scorer(normalize_input(x, input_dtype), t_total)
+
+    return score_planes, scorer.n_planes
+
+
+def _collect(out, b: int):
+    """Device results -> per-stream (ev_type, ev_pay, byte_stream) tuples.
+    out = (ev [B, E, 8] i32, n_ev [B], bytes [B, cap] u8, n_by [B])."""
+    ev, n_ev, by, n_by = out
+    nev = n_ev.cpu().numpy()
+    nby = n_by.cpu().numpy()
+    kmax = int(nev.max(initial=0))
+    bmax = int(nby.max(initial=0))
+    if bmax > by.shape[1]:
+        raise RuntimeError(f"byte log overflow ({bmax} > {by.shape[1]})")
+    ev_h = ev[:, :kmax].cpu().numpy().view(np.uint32)
+    by_h = by[:, :bmax].cpu().numpy()
+    return [
+        (*unpack_events(ev_h[i].T, int(nev[i])), by_h[i, :int(nby[i])].copy())
+        for i in range(b)
+    ]
+
+
+class DeviceReceiver:
+    """Host wrapper: pads the streams, runs K1 + K2 on `device`, returns
+    the per-stream (ev_type, ev_pay, byte_stream) tuples."""
+
+    def __init__(self, cfg: ModemConfig, precision: str = "auto",
+                 rx_one: bool = False, device="cpu"):
+        from .mega_rx import MegaReceiver
+
+        self.cfg = cfg
+        self.key = device_rx_key(cfg, precision)
+        self.rx_one = rx_one
+        self.device = torch.device(device)
+        self._mega = MegaReceiver(cfg, precision, rx_one, self.device)
+
+    def run_events_batch(self, samples: np.ndarray, totals,
+                         conf_threshold: float, conf_search_limit: float,
+                         carry=None, finalize: bool = True,
+                         in_encoding: str = None):
+        """samples: [B, L] (int16, float32, or uint8 with in_encoding in
+        U8_ENCODINGS); totals: [B] valid lengths.
+        Returns (events, carry_out): events is a list of per-stream
+        (ev_type, ev_pay, byte_stream) tuples.  Pass carry_out back in
+        (with finalize=False on all but the last segment) for streaming
+        decode."""
+        return self._mega.run_events_batch(
+            samples, totals, conf_threshold, conf_search_limit,
+            carry=carry, finalize=finalize, in_encoding=in_encoding)
+
+
+class _Uploader:
+    """Host -> device copies on their own CUDA stream from pinned buffers,
+    so segment k+1's transfer overlaps segment k's decode.  On the CPU a
+    "transfer" is a tensor view of the host buffer."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    def host_buffer(self, shape, dtype) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype,
+                           pin_memory=self.stream is not None)
+
+    def put(self, host: torch.Tensor):
+        """Start the copy; returns a handle for take()."""
+        if self.stream is None:
+            return host, None, host
+        with torch.cuda.stream(self.stream):
+            dev = host.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        return dev, done, host
+
+    def take(self, handle) -> torch.Tensor:
+        """Make the compute stream wait for the copy; returns the tensor."""
+        dev, done, _host = handle
+        if done is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(done)
+            dev.record_stream(compute)
+        return dev
+
+
+class PipelinedReceiver:
+    """Single-stream decode with the host->device transfer overlapped
+    against compute: a known-length stream is cut into fixed-size
+    segments, segment k+1's upload is issued while segment k decodes, and
+    the state machine carries across segments on the device.
+
+    Byte positions are per segment, so run() yields one event tuple per
+    segment — render them in order (codec/stderr state persists across
+    render calls).  The reference reads audio in half-buffer chunks
+    interleaved with decode (src/minimodem.c:1144-1174); this is that
+    overlap, done with asynchronous copies instead of blocking reads.
+    """
+
+    def __init__(self, cfg: ModemConfig, precision: str = "auto",
+                 rx_one: bool = False, segment_len: int = 1 << 21,
+                 device="cpu"):
+        from ..utils.cfloat import trunc_i
+
+        self.cfg = cfg
+        self.precision = precision
+        self.rx_one = rx_one
+        self.device = torch.device(device)
+        self.key = device_rx_key(cfg, precision)
+        geo = geometry_from_config(cfg, precision)
+        self.geo = geo
+        scan_w = trunc_i(cfg.nsamples_per_bit) + cfg.nsamples_overscan + 1
+        # a non-final segment is scanned only while every score it reads
+        # came from real samples
+        self._lookahead = geo.halo + scan_w
+        # worst-case distance between the scan-total and the final scan
+        # position: one full advance (frame + scan window)
+        max_adv = cfg.frame_nsamples + scan_w
+        self.overlap = self._lookahead + max_adv
+        self.segment_len = max(segment_len,
+                               4 * (self.overlap + cfg.expect_nsamples))
+        self.step = self.segment_len - self.overlap
+
+    def run(self, samples: np.ndarray, conf_threshold: float,
+            conf_search_limit: float, in_encoding: str = None):
+        """Yield per-segment (ev_type, ev_pay, byte_stream) tuples."""
+        from .mega_rx import MegaReceiver, mega_runner
+
+        n = len(samples)
+        if n <= self.segment_len:
+            events, _ = DeviceReceiver(
+                self.cfg, self.precision, self.rx_one, self.device
+            ).run_events_batch(samples[None, :], [n], conf_threshold,
+                               conf_search_limit, in_encoding=in_encoding)
+            yield events[0]
+            return
+
+        cfg = self.cfg
+        in_dtype = wire_dtype(samples, in_encoding)
+        total_nf = self.segment_len - self._lookahead + cfg.expect_nsamples
+        # non-final segments carry REAL lookahead samples past the scan
+        # bound `total_nf` (up to segment_len); u8 wires must not
+        # tail-mask them away (expand_wire's `extra`)
+        u8x = (max(0, self.segment_len - total_nf)
+               if in_dtype in U8_ENCODINGS else 0)
+        t_total = _round_up_pow2(total_nf + cfg.nsamples_overscan + 1)
+
+        starts = []
+        s = 0
+        while s + self.segment_len < n:
+            starts.append(s)
+            s += self.step
+        tail_start = s                                # tail in (overlap, seg]
+        tail_total = n - tail_start
+        t_total_f = _round_up_pow2(tail_total + cfg.nsamples_overscan + 1)
+
+        dev = self.device
+        MegaReceiver.check_supported(self.key)
+        run_nf = mega_runner(self.key, t_total, self.rx_one, in_dtype,
+                             False, u8x)
+        run_f = mega_runner(self.key, t_total_f, self.rx_one, in_dtype, True)
+        thr = (float(conf_threshold), float(conf_search_limit))
+        halo = self.geo.halo
+        # segment table: (start, scored length, totals, final)
+        segs = [(s0, t_total, total_nf, False) for s0 in starts]
+        segs.append((tail_start, t_total_f, tail_total, True))
+
+        up = _Uploader(dev)
+        wire_t = {"int16": torch.int16, "float32": torch.float32}.get(
+            in_dtype, torch.uint8)
+
+        def upload(j):
+            s0, tt, _, final = segs[j]
+            seg = samples[s0:n if final else s0 + self.segment_len]
+            host = up.host_buffer((1, tt + halo), wire_t)
+            hx = host.numpy()
+            hx.fill(PAD_BYTE[in_encoding] if in_encoding else 0)
+            m = min(len(seg), hx.shape[1])
+            hx[0, :m] = seg[:m]
+            return up.put(host)
+
+        ci, cf = (torch.from_numpy(a).to(dev)
+                  for a in MegaReceiver.carry_to_arrays(None, 1))
+        pending = upload(0)
+        for i, (_, _, total_i, final) in enumerate(segs):
+            x = up.take(pending)
+            totals = torch.tensor([total_i], dtype=torch.int32, device=dev)
+            out = (run_f if final else run_nf)(x, totals, thr, ci, cf)
+            if not final:
+                # rebase the carried position onto the next segment's
+                # origin (on the device: no host sync between segments)
+                ci = out[4].clone()
+                ci[:, 0] -= self.step
+                cf = out[5]
+                pending = upload(i + 1)
+            yield _collect(out[:4], 1)[0]

@@ -1,0 +1,144 @@
+"""K1: the fused scorer — stages 1 and 2 in one CUDA kernel.
+
+Replaces minimodem_tpu/ops/pallas_score.py::_build (the fused Pallas
+scorer, reached through make_fused_packer and
+device_rx.make_score_packer_planes).  It turns audio [B, L] into the
+per-offset score planes the state machine (K2, ops/mega_rx.py) reads:
+
+    planes [B, P, t_len] int32, rows (floats bit-cast to int32):
+      0 conf_data   1 ampl_data   2 bits_lo
+      3 conf_sync   4 ampl_sync   (only when the sync expect string differs
+                                   from the data one, e.g. NOAA SAME)
+
+The TPU kernel's layout tricks (4-row plane pad, overlapped plane slabs,
+MXP1 comb matmuls, VMEM gates) are not carried over; the layout is the
+port's own and parity is held at the channel values.
+
+`score_planes` is the wrapper: a CUDA tensor launches csrc/fused_score.cu,
+a CPU tensor runs `score_planes_plain` (correlate + score_frame_channels
+from ops/demod.py), and anything else raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .demod import DemodGeometry, correlate, make_basis, score_frame_channels
+
+# candidate offsets per CTA, largest first; the kernel stages the tile's
+# audio plus its halo and two float planes of (tile + max_begin) in shared
+# memory, so long-bit geometries take smaller tiles
+_TILES = (2048, 1024, 512, 256)
+_SMEM_MAX = 227 * 1024
+
+
+def plane_rows(geo: DemodGeometry) -> int:
+    """Number of score planes: 3, or 5 when sync and data expect differ."""
+    return 5 if tuple(geo.req_sync) != tuple(geo.req_data) else 3
+
+
+def _req_masks(req) -> tuple:
+    """Per-bit requirements as (mask, value) uint32 words."""
+    mask = val = 0
+    for k, r in enumerate(req):
+        if r >= 0:
+            mask |= 1 << k
+            val |= r << k
+    return mask, val
+
+
+def _smem_bytes(geo: DemodGeometry, tile: int) -> int:
+    span = tile + geo.max_begin
+    return 4 * ((span + geo.nb) + 4 * geo.nb + 2 * span + geo.n_bits)
+
+
+def pick_tile(geo: DemodGeometry) -> int:
+    for tile in _TILES:
+        if _smem_bytes(geo, tile) <= _SMEM_MAX:
+            return tile
+    raise NotImplementedError(
+        f"bit span {geo.max_begin + geo.nb} samples does not fit one CTA's "
+        "shared memory (ROADMAP queue 1 item 8)")
+
+
+def score_planes_plain(x: torch.Tensor, geo: DemodGeometry,
+                       t_len: int) -> torch.Tensor:
+    """Plain PyTorch version of K1.  x: [B, >= t_len + halo] float32."""
+    score_planes_plain.calls += 1
+    basis = torch.from_numpy(make_basis(geo, np.float32)).to(x.device)
+    corr = correlate(x[:, :t_len + geo.halo], basis, t_len + geo.max_begin)
+    ch = score_frame_channels(corr, geo, t_len)
+    rows = [ch["conf_data"].view(torch.int32),
+            ch["ampl_data"].view(torch.int32), ch["bits_lo"]]
+    if plane_rows(geo) == 5:
+        rows += [ch["conf_sync"].view(torch.int32),
+                 ch["ampl_sync"].view(torch.int32)]
+    return torch.stack(rows, dim=1)
+
+
+score_planes_plain.calls = 0
+
+
+class FusedScorer:
+    """K1 for one geometry: device constants are made once per device."""
+
+    def __init__(self, geo: DemodGeometry):
+        if geo.use_f64 or geo.n_bits > 32:
+            raise NotImplementedError(
+                "the fused scorer serves float32 geometries of <= 32 frame "
+                "bits (ROADMAP queue 1 item 8)")
+        self.geo = geo
+        self.n_planes = plane_rows(geo)
+        self.tile = pick_tile(geo)
+        self.d_mask, self.d_val = _req_masks(geo.req_data)
+        self.s_mask, self.s_val = _req_masks(geo.req_sync)
+        self._consts = {}
+
+    def _device_consts(self, device):
+        key = str(device)
+        if key not in self._consts:
+            basis = torch.from_numpy(
+                np.ascontiguousarray(make_basis(self.geo, np.float32)))
+            begin = torch.tensor(self.geo.bit_begin, dtype=torch.int32)
+            self._consts[key] = (basis.to(device), begin.to(device))
+        return self._consts[key]
+
+    def __call__(self, x: torch.Tensor, t_len: int) -> torch.Tensor:
+        """x: [B, >= t_len + halo] float32 -> planes [B, P, t_len] int32."""
+        geo = self.geo
+        if x.dim() != 2 or x.dtype != torch.float32:
+            raise ValueError(f"expected [B, L] float32 audio, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if x.shape[1] < t_len + geo.halo:
+            raise ValueError(f"audio rows of {x.shape[1]} samples are "
+                             f"shorter than t_len + halo = {t_len + geo.halo}")
+        if x.device.type == "cpu":
+            return score_planes_plain(x, geo, t_len)
+        if x.device.type != "cuda":
+            raise ValueError(f"no fused scorer for device {x.device}")
+        return self._launch(x.contiguous(), t_len)
+
+    def _launch(self, x: torch.Tensor, t_len: int) -> torch.Tensor:
+        from . import _kernels
+
+        geo = self.geo
+        basis, begin = self._device_consts(x.device)
+        out = torch.empty((x.shape[0], self.n_planes, t_len),
+                          dtype=torch.int32, device=x.device)
+        if t_len == 0 or x.shape[0] == 0:
+            return out
+        lib = _kernels.load()
+        err = lib.mm_fused_score(
+            x.data_ptr(), x.stride(0), x.shape[0], t_len,
+            basis.data_ptr(), geo.nb, begin.data_ptr(), geo.n_bits,
+            geo.max_begin, float(np.float32(geo.magscalar)),
+            self.d_mask, self.d_val, self.s_mask, self.s_val,
+            self.n_planes, self.tile, _smem_bytes(geo, self.tile),
+            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+        _kernels.check(err, "mm_fused_score")
+        FusedScorer.launches += 1
+        return out
+
+
+FusedScorer.launches = 0

@@ -1,0 +1,521 @@
+"""K2: the carrier state machine as one CUDA kernel ("megakernel").
+
+Replaces minimodem_tpu/ops/pallas_rx.py::build_mega_rx.  Each stream's
+whole receive loop runs inside the kernel over the score planes K1 wrote
+(ops/fused_score.py): the center-out coarse frame search with early exit
+and strict-improvement ties (reference: src/fsk.c:477-516), the fine
+rescan on acquisition or confidence drop, the confidence and amplitude
+squelch, the 20-scan carrier drop, f32 tracking and stats in reference
+order, the compact byte decode (stop strip, bit window, MSB reversal,
+sync-byte suppression, reference: src/minimodem.c:1414-1443), the event
+log, the carry in and out, and the final NOCARRIER flush.
+
+Carry format: [B, 8] int32 (pos, carrier, noconfidence, nframes,
+carrier_nsamples, stop, 0, 0) + [B, 4] float32 (track_amplitude,
+peak_confidence, conf_total, ampl_total) — the JAX megakernel's SMEM
+carry (pallas_rx.py:1268-1301), so a JAX carry resumes here.
+
+Outputs: ev [B, max_events, 8] int32 records (lanes 0-5 payload, 6 type),
+n_ev [B], bytes [B, b_cap] uint8, n_by [B], and the carry out.  Byte
+positions in event records restart at 0 each call.
+
+`MegaRx.__call__` is the wrapper: CUDA planes launch csrc/mega_rx.cu, CPU
+planes run `mega_rx_plain` (a per-stream Python loop with numpy float32
+stats), anything else raises.  The TPU kernel's latency tricks
+(speculative multi-frame decode, fast-path probe, prefetched resident
+window, byte-ring blend) are not carried over.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .device_rx import (
+    EV_CARRIER,
+    EV_NOCARRIER,
+    FSK_ANALYZE_NSTEPS,
+    FSK_ANALYZE_NSTEPS_FINE,
+    FSK_MAX_NOCONFIDENCE_BITS,
+    U8_ENCODINGS,
+    _collect,
+    _round_up_pow2,
+    _scan_order,
+    alloc_wire,
+    device_rx_key,
+    expand_wire,
+    geo_from_key,
+    make_score_packer_planes,
+    wire_dtype,
+)
+
+W_LANES = 128
+# largest scan window the JAX megakernel serves (pallas_rx.py:93); wider
+# windows (very low baud rates) are the XLA receiver's, not ported yet
+W_FETCH_MAX = 16384
+# candidate table width the kernel's parameter block holds
+K_MAX = 16
+
+
+def _static_geom(cfg_key):
+    (sample_rate, data_rate_bits, n_data_bits, nstartbits, nstopbits_bits,
+     b_mark, b_space, fftsize, nb, magscalar_bits, bit_begin, n_bits,
+     req_data, req_sync, use_f64, frame_nsamples, overscan,
+     expect_nsamples, msb_first, do_rx_sync, sync_byte) = cfg_key
+    data_rate_f = np.uint32(data_rate_bits).view(np.float32)
+    nspb = np.float32(np.float32(sample_rate) / data_rate_f)
+    geom = {}
+    for carrier in (0, 1):
+        if carrier:
+            try_max = int(np.trunc(np.float32(
+                nspb * np.float32(0.75)) + np.float32(0.5))) + overscan
+            try_first = overscan
+        else:
+            try_max = int(np.trunc(nspb)) + overscan
+            try_first = 0
+        coarse = max(try_max // FSK_ANALYZE_NSTEPS, 1)
+        fine = max(try_max // FSK_ANALYZE_NSTEPS_FINE, 1)
+        geom[carrier] = dict(
+            try_max=try_max, coarse_step=coarse,
+            coarse=_scan_order(try_first, try_max, coarse),
+            fine=_scan_order(try_first, try_max, fine))
+    return geom
+
+
+def _mega_window(cfg_key):
+    """w_fetch of the JAX megakernel for this geometry
+    (pallas_rx.py:177); it decides which geometries the
+    megakernel route serves."""
+    geom = _static_geom(cfg_key)
+    w_scan = max(geom[0]["try_max"], geom[1]["try_max"])
+    return ((w_scan + W_LANES - 1) // W_LANES + 1) * W_LANES
+
+
+def unsupported_reason(cfg_key):
+    """Why the megakernel route cannot serve this geometry, or None."""
+    geo = geo_from_key(cfg_key)
+    if cfg_key[2] > 8:
+        return "more than 8 data bits"
+    if geo.use_f64:
+        return "float64 (perfect-capable) scoring"
+    if geo.n_bits > 32:
+        return "more than 32 frame bits"
+    if _mega_window(cfg_key) > W_FETCH_MAX:
+        return "a scan window over 16384 samples"
+    geom = _static_geom(cfg_key)
+    if max(len(g[k]) for g in geom.values() for k in ("coarse", "fine")) \
+            > K_MAX:
+        return f"more than {K_MAX} scan candidates"
+    return None
+
+
+@dataclass(frozen=True)
+class MegaStatics:
+    """Everything static the state machine depends on, for one geometry
+    and one scored length."""
+
+    t_total: int
+    expect_nsamples: int
+    frame_nsamples: int
+    overscan: int
+    try_max: tuple
+    coarse_step: tuple
+    cand_c: tuple              # per carrier flag: tuple of offsets
+    cand_f: tuple
+    max_events: int
+    b_cap: int
+    rx_one: bool
+    n_data_bits: int
+    data_shift: int
+    msb_first: bool
+    sync_ok: bool
+    sync_byte: int
+    dual: bool
+
+    @classmethod
+    def build(cls, cfg_key, t_total: int, rx_one: bool) -> "MegaStatics":
+        (sample_rate, data_rate_bits, n_data_bits, nstartbits,
+         nstopbits_bits, b_mark, b_space, fftsize, nb, magscalar_bits,
+         bit_begin, n_bits, req_data, req_sync, use_f64, frame_nsamples,
+         overscan, expect_nsamples, msb_first, do_rx_sync,
+         sync_byte) = cfg_key
+        geom = _static_geom(cfg_key)
+        nstop_shift = (0 if np.uint32(nstopbits_bits).view(np.float32) == 0
+                       else 1)
+        # event and byte bounds of the JAX megakernel (pallas_rx.py:276-293)
+        frame_adv = max(1, frame_nsamples - overscan)
+        drop_adv = max(1, (FSK_MAX_NOCONFIDENCE_BITS + 1)
+                       * min(geom[0]["try_max"], geom[1]["try_max"]))
+        return cls(
+            t_total=t_total,
+            expect_nsamples=expect_nsamples,
+            frame_nsamples=frame_nsamples,
+            overscan=overscan,
+            try_max=(geom[0]["try_max"], geom[1]["try_max"]),
+            coarse_step=(geom[0]["coarse_step"], geom[1]["coarse_step"]),
+            cand_c=(tuple(geom[0]["coarse"]), tuple(geom[1]["coarse"])),
+            cand_f=(tuple(geom[0]["fine"]), tuple(geom[1]["fine"])),
+            max_events=2 * (t_total // (frame_adv + drop_adv)) + 16,
+            b_cap=t_total // frame_adv + 17,
+            rx_one=bool(rx_one),
+            n_data_bits=n_data_bits,
+            data_shift=nstop_shift + nstartbits,
+            msb_first=bool(msb_first),
+            sync_ok=bool(do_rx_sync and 0 <= sync_byte < (1 << n_data_bits)),
+            sync_byte=int(sync_byte),
+            dual=tuple(req_data) != tuple(req_sync),
+        )
+
+
+# ======================================================================
+# plain version
+# ======================================================================
+
+_F0 = np.float32(0.0)
+_INF = np.float32(np.inf)
+
+
+def _i32(v: int) -> int:
+    """Wrap a Python int to int32, as the kernel's registers do."""
+    return (v + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _fbits(v) -> int:
+    return int(np.float32(v).view(np.int32))
+
+
+def _find_frame(conf, ampl, bits, t_scored, pos, cands, limit):
+    """fsk_find_frame replay (reference: src/fsk.c:477-516): center-out
+    candidates in table order, strict improvement from 0, stop at the
+    first running best >= limit.  Reads at or past the scored length
+    (and NaN confidences) never improve, like the zero-signal scores the
+    JAX megakernel reads there.  Returns (conf, ampl, bits, t)."""
+    best, bidx, bt = _F0, -1, 0
+    for t in cands:
+        idx = pos + t
+        if idx < 0 or idx >= t_scored:
+            continue
+        c = conf[idx]
+        if best < c:
+            best, bidx, bt = c, idx, t
+            if best >= limit:
+                break
+    if bidx < 0:
+        return _F0, _F0, 0, 0
+    return best, ampl[bidx], int(bits[bidx]) & 0xFFFFFFFF, bt
+
+
+def _decode_word(st: MegaStatics, blo: int):
+    """Frame bits -> (data byte, keep flag) (minimodem.c:1414-1439)."""
+    word = (blo >> st.data_shift) & ((1 << st.n_data_bits) - 1)
+    if st.msb_first:
+        rev = 0
+        for k in range(st.n_data_bits):
+            rev |= ((word >> k) & 1) << (st.n_data_bits - 1 - k)
+        word = rev
+    return word, not (st.sync_ok and word == st.sync_byte)
+
+
+def _run_stream(st: MegaStatics, finalize: bool, planes, total, thr, lim,
+                ci, cf, ev, by):
+    """One stream's state machine over numpy planes [P, T] int32.
+    Writes ev [E, 8] / by [b_cap]; returns (n_ev, n_by, ci_out, cf_out)."""
+    t_scored = planes.shape[1]
+    cd, ad = planes[0].view(np.float32), planes[1].view(np.float32)
+    bl = planes[2]
+    cs, as_ = ((planes[3].view(np.float32), planes[4].view(np.float32))
+               if st.dual else (cd, ad))
+    pos, carrier, noconf, nframes, carrier_ns, stop = (int(v) for v in ci[:6])
+    track, peak, conf_tot, ampl_tot = (np.float32(v) for v in cf[:4])
+    n_ev = n_by = 0
+    q75, q25, two = np.float32(0.75), np.float32(0.25), np.float32(2.0)
+    while (stop == 0 and pos + st.expect_nsamples <= total
+           and n_ev < st.max_events - 2):
+        cw = carrier
+        conf_a, ampl_a = (cd, ad) if cw else (cs, as_)
+        c, a, blo, fs = _find_frame(conf_a, ampl_a, bl, t_scored, pos,
+                                    st.cand_c[cw], lim)
+        refine = c < peak * q75
+        if refine:
+            peak = _F0
+        if a < track * q25:
+            c = _F0
+        got = not (c <= thr)
+        noconf = 0 if got else noconf + 1
+        drop = not got and noconf > FSK_MAX_NOCONFIDENCE_BITS
+        drop_report = drop and cw == 1
+        acquired = got and cw == 0
+        fs_coarse = fs
+        if (got and (refine or acquired) and c < _INF
+                and st.coarse_step[cw] > 1):
+            # fine rescan: same window, data expect, no early exit
+            c2, a2, blo2, fs2 = _find_frame(cd, ad, bl, t_scored, pos,
+                                            st.cand_f[cw], _INF)
+            if c2 > c:
+                # NB: confidence itself is not updated (minimodem.c:1383)
+                a, blo, fs = a2, blo2, fs2
+        if got:
+            carrier_ns += st.frame_nsamples + (
+                fs_coarse - st.overscan if cw else 0)
+            track = (track + a) / two
+            if peak < c:
+                peak = c
+            conf_tot = conf_tot + c
+            ampl_tot = ampl_tot + a
+            nframes += 1
+            advance = fs + st.frame_nsamples - st.overscan
+        else:
+            advance = st.try_max[cw]
+        if drop_report:
+            ev[n_ev] = (_i32(nframes), _fbits(conf_tot), _fbits(ampl_tot),
+                        _i32(carrier_ns), n_by, 0, EV_NOCARRIER, 0)
+            n_ev += 1
+        elif acquired:
+            ev[n_ev] = (n_by, 0, 0, 0, 0, 0, EV_CARRIER, 0)
+            n_ev += 1
+        if got:
+            word, keep = _decode_word(st, blo)
+            if keep:
+                if n_by >= st.b_cap:
+                    raise RuntimeError("byte log overflow")
+                by[n_by] = word
+                n_by += 1
+        pos += advance
+        carrier = 1 if got else (0 if drop else cw)
+        if drop_report:
+            track = conf_tot = ampl_tot = _F0
+            nframes = carrier_ns = 0
+            if st.rx_one:
+                stop = 1
+    ci_out = (_i32(pos), carrier, noconf, _i32(nframes), _i32(carrier_ns),
+              stop, 0, 0)
+    cf_out = (track, peak, conf_tot, ampl_tot)
+    if finalize and carrier:
+        ev[n_ev] = (_i32(nframes), _fbits(conf_tot), _fbits(ampl_tot),
+                    _i32(carrier_ns), n_by, 0, EV_NOCARRIER, 0)
+        n_ev += 1
+    return n_ev, n_by, ci_out, cf_out
+
+
+def mega_rx_plain(st: MegaStatics, finalize: bool, planes, totals,
+                  thr: tuple, carry_i, carry_f):
+    """Plain version of K2 over numpy arrays: planes [B, P, T] int32,
+    totals [B], carry [B, 8] int32 + [B, 4] float32.  Returns numpy
+    (ev [B, E, 8] i32, n_ev [B], bytes [B, b_cap] u8, n_by [B],
+    carry_i_out, carry_f_out)."""
+    mega_rx_plain.calls += 1
+    b = planes.shape[0]
+    ev = np.zeros((b, st.max_events, 8), np.int32)
+    by = np.zeros((b, st.b_cap), np.uint8)
+    n_ev = np.zeros(b, np.int32)
+    n_by = np.zeros(b, np.int32)
+    ci_out = np.zeros((b, 8), np.int32)
+    cf_out = np.zeros((b, 4), np.float32)
+    thr_f, lim_f = np.float32(thr[0]), np.float32(thr[1])
+    for i in range(b):
+        n_ev[i], n_by[i], ci_out[i], cf_out[i] = _run_stream(
+            st, finalize, planes[i], int(totals[i]), thr_f, lim_f,
+            carry_i[i], carry_f[i], ev[i], by[i])
+    return ev, n_ev, by, n_by, ci_out, cf_out
+
+
+mega_rx_plain.calls = 0
+
+
+# ======================================================================
+# the wrapper
+# ======================================================================
+
+class MegaParams(ctypes.Structure):
+    """Mirror of csrc/mega_rx.cu's MegaParams (passed by value)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "batch", "n_planes", "t_scored", "expect_nsamples", "frame_nsamples",
+        "overscan", "try_max0", "try_max1", "coarse_step0", "coarse_step1",
+        "max_events", "b_cap", "rx_one", "finalize", "n_data_bits",
+        "data_shift", "msb_first", "sync_ok", "sync_byte", "dual")] + [
+        ("conf_threshold", ctypes.c_float),
+        ("conf_search_limit", ctypes.c_float),
+        ("cand_c", (ctypes.c_int * K_MAX) * 2),
+        ("cand_f", (ctypes.c_int * K_MAX) * 2),
+    ]
+
+
+class MegaRx:
+    """K2 for one geometry and scored length."""
+
+    launches = 0
+
+    def __init__(self, st: MegaStatics):
+        self.st = st
+
+    def __call__(self, planes: torch.Tensor, totals: torch.Tensor,
+                 thr: tuple, carry_i: torch.Tensor, carry_f: torch.Tensor,
+                 finalize: bool):
+        """planes [B, P, T] int32 -> (ev, n_ev, bytes, n_by, ci, cf)
+        tensors on the planes' device."""
+        dev = planes.device
+        for t in (totals, carry_i, carry_f):
+            if t.device != dev:
+                raise ValueError("planes, totals and carry must share a "
+                                 "device")
+        if dev.type == "cpu":
+            out = mega_rx_plain(self.st, finalize, planes.numpy(),
+                                totals.numpy(), thr, carry_i.numpy(),
+                                carry_f.numpy())
+            return tuple(torch.from_numpy(a) for a in out)
+        if dev.type != "cuda":
+            raise ValueError(f"no megakernel for device {dev}")
+        return self._launch(planes.contiguous(),
+                            totals.to(torch.int32).contiguous(), thr,
+                            carry_i.to(torch.int32).contiguous(),
+                            carry_f.to(torch.float32).contiguous(), finalize)
+
+    def _launch(self, planes, totals, thr, carry_i, carry_f, finalize):
+        from . import _kernels
+
+        st = self.st
+        b, n_planes, t_scored = planes.shape
+        dev = planes.device
+        ev = torch.empty((b, st.max_events, 8), dtype=torch.int32,
+                         device=dev)
+        by = torch.empty((b, st.b_cap), dtype=torch.uint8, device=dev)
+        n_ev = torch.empty(b, dtype=torch.int32, device=dev)
+        n_by = torch.empty(b, dtype=torch.int32, device=dev)
+        ci = torch.empty((b, 8), dtype=torch.int32, device=dev)
+        cf = torch.empty((b, 4), dtype=torch.float32, device=dev)
+        if b == 0:
+            return ev, n_ev, by, n_by, ci, cf
+        p = MegaParams(
+            batch=b, n_planes=n_planes, t_scored=t_scored,
+            expect_nsamples=st.expect_nsamples,
+            frame_nsamples=st.frame_nsamples, overscan=st.overscan,
+            try_max0=st.try_max[0], try_max1=st.try_max[1],
+            coarse_step0=st.coarse_step[0], coarse_step1=st.coarse_step[1],
+            max_events=st.max_events, b_cap=st.b_cap, rx_one=int(st.rx_one),
+            finalize=int(finalize), n_data_bits=st.n_data_bits,
+            data_shift=st.data_shift, msb_first=int(st.msb_first),
+            sync_ok=int(st.sync_ok), sync_byte=st.sync_byte,
+            dual=int(st.dual),
+            conf_threshold=float(np.float32(thr[0])),
+            conf_search_limit=float(np.float32(thr[1])))
+        for row, (cc, ff) in enumerate(zip(st.cand_c, st.cand_f)):
+            for k in range(K_MAX):
+                p.cand_c[row][k] = cc[k] if k < len(cc) else -1
+                p.cand_f[row][k] = ff[k] if k < len(ff) else -1
+        lib = _kernels.load()
+        err = lib.mm_mega_rx(
+            ctypes.addressof(p), planes.data_ptr(), totals.data_ptr(),
+            carry_i.data_ptr(), carry_f.data_ptr(), ev.data_ptr(),
+            n_ev.data_ptr(), by.data_ptr(), n_by.data_ptr(), ci.data_ptr(),
+            cf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _kernels.check(err, "mm_mega_rx")
+        MegaRx.launches += 1
+        return ev, n_ev, by, n_by, ci, cf
+
+
+@functools.lru_cache(maxsize=32)
+def mega_runner(cfg_key, t_total: int, rx_one: bool, input_dtype: str,
+                finalize: bool = True, u8_extra: int = 0):
+    """The packer + megakernel program for one geometry, scored length
+    and wire dtype (the counterpart of pallas_rx._mega_run_fn), for any
+    batch and device.  Returns run(x [B, t_total + halo], totals [B] i32,
+    (thr, limit), carry_i, carry_f) -> (ev, n_ev, bytes, n_by,
+    carry_i_out, carry_f_out) on x's device."""
+    st = MegaStatics.build(cfg_key, t_total, rx_one)
+    u8 = input_dtype in U8_ENCODINGS
+    packer, _ = make_score_packer_planes(
+        cfg_key, t_total, "float32" if u8 else input_dtype)
+    mega = MegaRx(st)
+
+    def run(x, totals, thr, carry_i, carry_f):
+        if u8:
+            x = expand_wire(x, totals, input_dtype, u8_extra)
+        return mega(packer(x), totals, thr, carry_i, carry_f, finalize)
+
+    return run
+
+
+class MegaReceiver:
+    """Batched receiver on K1 + K2: per-stream (ev_type, ev_pay,
+    byte_stream) tuples, the same as the JAX compact receivers."""
+
+    def __init__(self, cfg, precision: str = "auto", rx_one: bool = False,
+                 device="cpu"):
+        self.cfg = cfg
+        self.key = device_rx_key(cfg, precision)
+        self.check_supported(self.key)
+        self.rx_one = rx_one
+        self.device = torch.device(device)
+
+    @staticmethod
+    def check_supported(cfg_key):
+        why = unsupported_reason(cfg_key)
+        if why is not None:
+            raise NotImplementedError(
+                f"the megakernel route does not serve {why}; the JAX "
+                "package's XLA receiver for it is not ported yet (ROADMAP "
+                "queue 1 item 8)")
+
+    @staticmethod
+    def carry_to_arrays(carry, b):
+        """Pack a CARRY_FIELDS dict into the kernel's carry arrays."""
+        ci = np.zeros((b, 8), np.int32)
+        cf = np.zeros((b, 4), np.float32)
+        if carry is not None:
+            ci[:, 0] = np.asarray(carry["pos"], np.int32)
+            ci[:, 1] = np.asarray(carry["carrier"]).astype(np.int32)
+            ci[:, 2] = np.asarray(carry["noconfidence"], np.int32)
+            ci[:, 3] = np.asarray(carry["nframes"], np.int32)
+            ci[:, 4] = np.asarray(carry["carrier_nsamples"], np.int32)
+            ci[:, 5] = np.asarray(carry["stop"]).astype(np.int32)
+            cf[:, 0] = np.asarray(carry["track_amplitude"], np.float32)
+            cf[:, 1] = np.asarray(carry["peak_confidence"], np.float32)
+            cf[:, 2] = np.asarray(carry["conf_total"], np.float32)
+            cf[:, 3] = np.asarray(carry["ampl_total"], np.float32)
+        return ci, cf
+
+    @staticmethod
+    def arrays_to_carry(ci, cf):
+        ci = np.asarray(ci)
+        cf = np.asarray(cf)
+        return {
+            "pos": ci[:, 0].copy(),
+            "carrier": ci[:, 1] != 0,
+            "noconfidence": ci[:, 2].copy(),
+            "track_amplitude": cf[:, 0].copy(),
+            "peak_confidence": cf[:, 1].copy(),
+            "conf_total": cf[:, 2].copy(),
+            "ampl_total": cf[:, 3].copy(),
+            "nframes": ci[:, 3].copy(),
+            "carrier_nsamples": ci[:, 4].copy(),
+            "stop": ci[:, 5] != 0,
+        }
+
+    def run_events_batch(self, samples: np.ndarray, totals,
+                         conf_threshold: float, conf_search_limit: float,
+                         carry=None, finalize: bool = True,
+                         in_encoding: str = None):
+        b, L = samples.shape
+        totals = np.asarray(totals, np.int32)
+        t_total = _round_up_pow2(
+            int(totals.max(initial=0)) + self.cfg.nsamples_overscan + 1)
+        halo = geo_from_key(self.key).halo
+        in_dtype = wire_dtype(samples, in_encoding)
+        run = mega_runner(self.key, t_total, self.rx_one, in_dtype,
+                          finalize)
+        row = t_total + halo
+        x = alloc_wire((b, row), samples.dtype, in_encoding)
+        x[:, :min(L, row)] = samples[:, :row]
+        dev = self.device
+        ci, cf = self.carry_to_arrays(carry, b)
+        out = run(torch.from_numpy(x).to(dev), torch.from_numpy(totals).to(dev),
+                  (conf_threshold, conf_search_limit),
+                  torch.from_numpy(ci).to(dev), torch.from_numpy(cf).to(dev))
+        events = _collect(out[:4], b)
+        return events, self.arrays_to_carry(out[4].cpu().numpy(),
+                                            out[5].cpu().numpy())
