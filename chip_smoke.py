@@ -19,7 +19,24 @@ one line each; any failure exits non-zero:
      state) decoded by `minimodem-tpu-torch --rx --file f.wav 1200`,
      in process (launch counts and plain-version calls recorded) and as
      subprocesses with --device cuda and --device cpu;
-  5. timings, each beside the card's name and power limit.
+  5. timings, each beside the card's name and power limit;
+  6. K3, the stage-1 correlation, against its plain version on the card
+     at the host engines' shapes from the same audio (plus noise): one
+     131072-sample chunk with its halo (the K3a form) and all of the
+     stream's chunks as overlapping rows at a row stride (the K3b form),
+     bit for bit;
+  7. the host engines end to end on the same file: `--engine host` and
+     `--engine host-native`, in process (K3 launch counts, plain calls 0)
+     and as --device cuda / --device cpu subprocesses: stdout byte-exact,
+     stderr equal to the device engine's;
+  8. the float64 route: `1200 --samplerate 24000 -M 1200 -S 2400 --engine
+     host` prints confidence=inf and (rate perfect), cuda == cpu;
+  9. `-a --engine host` on two bursts with a retune between them, cuda ==
+     cpu byte for byte;
+ 10. K3 and host-engine timings (warm decode walls, the host engine's
+     split between chunk scoring and the Python state machine, a
+     torch.profiler breakdown), each beside the card's name and power
+     limit.
 
 The next-to-last line is the kernels' JSON summary, preceded by the
 nvidia-smi line; the last line is {"ok": true, "device": {...}}.
@@ -71,6 +88,28 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, reps: int, kernel: str):
+    """Mean device time of the kernel named `kernel` over reps calls of
+    fn(), from torch.profiler: the kernel alone, without the host time
+    between launches that CUDA events around back-to-back calls include.
+    None when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if kernel in e.key and us > 0 and e.count:
+            return us / e.count / 1e3
+    return None
 
 
 def run_cli_inprocess(argv):
@@ -162,6 +201,208 @@ def host_split(wav: str, device) -> str:
     t2 = time.perf_counter()
     return (f"read WAV {1e3 * (t1 - t0):.2f} ms, Receiver.run "
             f"{1e3 * (t2 - t1):.2f} ms")
+
+
+def k3_check(audio, dev) -> dict:
+    """K3 against its plain version at the host engines' shapes: the
+    stream (plus uniform noise of amplitude 0.3) in chunk rows of
+    chunk_len + halo samples at stride chunk_len, as
+    DemodScorer.score_chunks hands them over.  -> per form: shapes,
+    bit-different words, max_abs_err, kernel and plain ms."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.ops.correlate import Correlator, correlate_plain
+    from minimodem_tpu_torch.ops.demod import DemodScorer, make_basis
+
+    sc = DemodScorer(FskModem("1200").cfg, device=dev)
+    geo, t_len = sc.geo, sc.chunk_len
+    s_len = t_len + geo.max_begin
+    n_chunks = -(-len(audio) // t_len)
+    flat = np.zeros(n_chunks * t_len + geo.halo, np.float32)
+    flat[:len(audio)] = audio
+    rng = np.random.default_rng(SEED + 3)
+    flat += (rng.random(flat.size, dtype=np.float32) - np.float32(0.5)) \
+        * np.float32(0.6)
+    rows = torch.from_numpy(flat).to(dev).unfold(0, t_len + geo.halo, t_len)
+    corr = Correlator(make_basis(geo, np.float32))
+    basis = corr.basis(dev)
+    out = {}
+    for name, x in (("correlate", rows[:1]), ("correlate_batch", rows)):
+        k = corr(x, s_len)
+        p = correlate_plain(x, basis, s_len)
+        torch.cuda.synchronize()
+        kn, pn = k.cpu().numpy(), p.cpu().numpy()
+        out[name] = {
+            "shape": f"{list(x.shape)} (row stride {x.stride(0)}) -> "
+                     f"{list(kn.shape)}",
+            "words": int(np.count_nonzero(kn.view(np.uint32)
+                                          != pn.view(np.uint32))),
+            "max_abs_err": float(np.abs(kn.astype(np.float64) - pn).max()),
+            "ms": cuda_ms(lambda: corr(x, s_len), 20),
+            "kernel_ms": kernel_device_ms(lambda: corr(x, s_len), 20,
+                                          "correlate_kernel"),
+            "plain_ms": cuda_ms(lambda: correlate_plain(x, basis, s_len), 3),
+        }
+    return out
+
+
+def host_engines(wav: str, text: bytes, err_device: str) -> dict:
+    """The host engines on the file: in process on the card with the
+    counts set to 0 just before and read just after, then as --device
+    cuda and --device cpu subprocesses."""
+    from minimodem_tpu_torch.ops.correlate import Correlator, correlate_plain
+    from minimodem_tpu_torch.ops.fused_score import score_planes_plain
+    from minimodem_tpu_torch.ops.mega_rx import mega_rx_plain
+
+    res = {}
+    for engine, count in (("host", "launches"),
+                          ("host-native", "batch_launches")):
+        argv = ["--rx", "--file", wav, "1200", "--engine", engine,
+                "--device", "cuda"]
+        run_cli_inprocess(argv)                        # warm-up
+        Correlator.launches = Correlator.batch_launches = 0
+        correlate_plain.calls = score_planes_plain.calls = 0
+        mega_rx_plain.calls = 0
+        t0 = time.perf_counter()
+        rc, out, err = run_cli_inprocess(argv)
+        wall_s = time.perf_counter() - t0
+        launches = getattr(Correlator, count)
+        plain = (correlate_plain.calls + score_planes_plain.calls
+                 + mega_rx_plain.calls)
+        if rc != 0 or out != text or err != err_device:
+            fail(f"--engine {engine} in process: rc {rc}, stdout exact "
+                 f"{out == text}, stderr == device engine's "
+                 f"{err == err_device}\n{err}")
+        if launches < 1 or plain:
+            fail(f"--engine {engine}: K3 {count} {launches}, plain calls "
+                 f"{plain}")
+        rc_c, out_c, err_c = run_cli_subprocess(argv)
+        rc_p, out_p, err_p = run_cli_subprocess(argv[:-1] + ["cpu"])
+        ok = (rc_c == rc_p == 0 and out_c == out_p == text
+              and err_c == err_p == err_device)
+        phase(f"end to end --engine {engine}: in process stdout byte-exact, "
+              f"stderr == device engine's; K3 {count} {launches}, plain "
+              f"calls {plain}; subprocesses cuda/cpu stdout exact "
+              f"{out_c == text}/{out_p == text}, stderr == device engine's "
+              f"{err_c == err_device}/{err_p == err_device}")
+        if not ok:
+            fail(f"--engine {engine} subprocesses: rc {rc_c}/{rc_p}\n"
+                 f"{err_c}\n{err_p}")
+        res[engine] = {"launches": launches, "wall_s": wall_s,
+                       "profile": profile_decode(argv)}
+    return res
+
+
+def perfect_check(tmp: str) -> None:
+    """The float64 route through the host engine on the card."""
+    args = ["1200", "--samplerate", "24000", "-M", "1200", "-S", "2400"]
+    ptext = b"".join(b"perfect line %03d\n" % i for i in range(40))
+    path = os.path.join(tmp, "perfect.wav")
+    rc, _, err = run_cli_subprocess(["--tx", "--file", path, *args], ptext)
+    if rc != 0:
+        fail(f"perfect tx: {err}")
+    runs = [run_cli_inprocess(["--rx", "--file", path, *args, "--engine",
+                               "host", "--device", d])
+            for d in ("cuda", "cpu")]
+    rc, out, err = runs[0]
+    ok = (rc == 0 and out == ptext and "confidence=inf" in err
+          and "(rate perfect)" in err and runs[0] == runs[1])
+    phase(f"float64 route ({' '.join(args)} --engine host): stdout exact "
+          f"{out == ptext}, cuda == cpu {runs[0] == runs[1]}; stderr: "
+          f"{err.strip()!r}")
+    if not ok:
+        fail("the float64 host-engine decode disagrees")
+
+
+def autodetect_check(dev) -> None:
+    """-a --engine host on two bursts with a retune between them (the
+    signal of tests/test_autodetect_device.py::test_rearm_retune)."""
+    import numpy as np
+    from minimodem_tpu_torch.codecs import get_codec
+    from minimodem_tpu_torch.config import RxOptions
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.models.presets import bell_like
+    from minimodem_tpu_torch.ops.correlate import Correlator
+    from minimodem_tpu_torch.rx.engine import Receiver
+    from minimodem_tpu_torch.utils.cfloat import f32
+
+    def burst(mark, space, text):
+        m = FskModem("300", sample_rate=24000)
+        m.preset = bell_like(300, 24000, mark_f=f32(mark),
+                             space_f=f32(space))
+        m.cfg = m.preset.cfg
+        return m.modulate(text)
+
+    stream = np.concatenate([burst(1200, 2400, b"AT 1200"),
+                             np.zeros(24000, np.float32),
+                             burst(1800, 3000, b"AT 1800")])
+    outs = []
+    for d in (dev, "cpu"):
+        sink, err = io.BytesIO(), io.StringIO()
+        launches = Correlator.launches
+        Receiver(bell_like(300, 24000).cfg,
+                 RxOptions(carrier_autodetect_threshold=0.001),
+                 get_codec("ascii8"), sink.write, err.write,
+                 device=d).run(stream.copy(), engine="host")
+        outs.append((sink.getvalue(), err.getvalue(),
+                     Correlator.launches - launches))
+    ok = outs[0][:2] == outs[1][:2] and outs[0][0] == b"AT 1200AT 1800"
+    phase(f"-a --engine host, retune between bursts: cuda == cpu "
+          f"{outs[0][:2] == outs[1][:2]}, stdout {outs[0][0]!r}, K3 "
+          f"launches on the card {outs[0][2]}; stderr: {outs[0][1]!r}")
+    if not ok or outs[0][2] < 1:
+        fail("-a --engine host disagrees between cuda and cpu")
+
+
+def host_engine_split(wav: str, device) -> str:
+    """One warm host-engine decode of the file, its wall split between
+    chunk scoring (DemodScorer.score: upload, K3, channel math and the
+    one synchronising D2H copy per chunk) and the rest (the Python state
+    machine and rendering)."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch.codecs import get_codec
+    from minimodem_tpu_torch.config import RxOptions
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.ops.demod import DemodScorer
+    from minimodem_tpu_torch.rx.engine import Receiver
+    from minimodem_tpu_torch.sigio import Direction, SampleFormat, open_stream
+
+    cfg = FskModem("1200").cfg
+    stream = open_stream("file", None, Direction.RECORD, SampleFormat.FLOAT,
+                         cfg.sample_rate, 1, "chip_smoke", wav)
+    stream.format = SampleFormat.S16
+    chunks = []
+    while (c := stream.read(1 << 20)).size:
+        chunks.append(c)
+    stream.close()
+    samples = np.concatenate(chunks)
+    spent = [0, 0.0]
+    orig = DemodScorer.score
+
+    def timed(self, x):
+        t = time.perf_counter()
+        try:
+            return orig(self, x)
+        finally:
+            spent[0] += 1
+            spent[1] += time.perf_counter() - t
+
+    DemodScorer.score = timed
+    try:
+        rx = Receiver(cfg, RxOptions(), get_codec("ascii8"), lambda b: None,
+                      lambda s: None, device=device)
+        t0 = time.perf_counter()
+        rx.run(samples, engine="host")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        DemodScorer.score = orig
+    return (f"wall {1e3 * wall:.2f} ms (after the WAV read): chunk scoring "
+            f"{1e3 * spent[1]:.2f} ms in {spent[0]} calls "
+            f"({100 * spent[1] / wall:.1f}%), Python state machine and "
+            f"render {1e3 * (wall - spent[1]):.2f} ms")
 
 
 def main() -> int:
@@ -312,17 +553,29 @@ def main() -> int:
         rc_p, out_p2, err_p = run_cli_subprocess(argv[:-1] + ["cpu"])
         prof_line = profile_decode(argv)
         split_line = host_split(wav, dev)
-    n_seg = -(-max(n_samples - seg, 0) // pr.step) + 1
-    ok_e2e = (rc_c == 0 and out_c == text and rc_p == 0 and out_p2 == text
-              and err_c == err_p == err_cuda)
-    phase(f"end to end: {len(text)} bytes, {n_samples} samples "
-          f"({n_samples / cfg.sample_rate:.1f} s audio, {n_seg} segments); "
-          f"stdout byte-exact (cuda subprocess {out_c == text}, cpu "
-          f"{out_p2 == text}), stderr cuda == cpu {err_c == err_p}; "
-          f"launches {launches}, plain calls {plain_calls}; "
-          f"stderr: {err_c.strip()!r}")
-    if not ok_e2e:
-        fail(f"end-to-end mismatch: rc {rc_c}/{rc_p}\n{err_c}\n{err_p}")
+        n_seg = -(-max(n_samples - seg, 0) // pr.step) + 1
+        ok_e2e = (rc_c == 0 and out_c == text and rc_p == 0
+                  and out_p2 == text and err_c == err_p == err_cuda)
+        phase(f"end to end: {len(text)} bytes, {n_samples} samples "
+              f"({n_samples / cfg.sample_rate:.1f} s audio, {n_seg} "
+              f"segments); stdout byte-exact (cuda subprocess "
+              f"{out_c == text}, cpu {out_p2 == text}), stderr cuda == cpu "
+              f"{err_c == err_p}; launches {launches}, plain calls "
+              f"{plain_calls}; stderr: {err_c.strip()!r}")
+        if not ok_e2e:
+            fail(f"end-to-end mismatch: rc {rc_c}/{rc_p}\n{err_c}\n{err_p}")
+
+        # ---- 6-9. K3 and the host engines ----
+        k3 = k3_check(audio, dev)
+        for name, r in k3.items():
+            phase(f"K3 {name} vs plain at {r['shape']}: bit-different "
+                  f"words {r['words']}, max_abs_err {r['max_abs_err']}")
+            if r["words"]:
+                fail(f"K3 {name} disagrees with its plain version")
+        host = host_engines(wav, text, err_cuda)
+        host_split_line = host_engine_split(wav, dev)
+        perfect_check(tmp)
+        autodetect_check(dev)
 
     # ---- 5. timings ----
     phase(f"time K1 fused_score [1, {t_total + halo}]: kernel {k1_ms:.4f} "
@@ -337,6 +590,25 @@ def main() -> int:
           f"({card})")
     phase(f"host split of one warm decode: {split_line} ({card})")
 
+    # ---- 10. K3 and host-engine timings ----
+    for name, r in k3.items():
+        dev_ms = ("not measured" if r["kernel_ms"] is None
+                  else f"{r['kernel_ms']:.4f} ms")
+        phase(f"time K3 {name} {r['shape']}: kernel {r['ms']:.4f} ms per "
+              f"wrapper call (CUDA events), {dev_ms} device time of the "
+              f"kernel alone (torch.profiler), plain {r['plain_ms']:.4f} ms "
+              f"({card})")
+    for engine, r in host.items():
+        phase(f"time --engine {engine} end to end (in process, warm): "
+              f"{r['wall_s'] * 1e3:.1f} ms for "
+              f"{n_samples / cfg.sample_rate:.1f} s audio = "
+              f"{n_samples / cfg.sample_rate / r['wall_s']:.1f} audio s per "
+              f"wall s ({card})")
+        phase(f"profile of one warm --engine {engine} decode "
+              f"(torch.profiler): {r['profile']} ({card})")
+    phase(f"host engine split of one warm decode: {host_split_line} "
+          f"({card})")
+
     src = "minimodem_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
         {"name": "fused_score", "route": "cuda",
@@ -348,6 +620,19 @@ def main() -> int:
          "replaces": "minimodem_tpu/ops/pallas_rx.py:1100",
          "launches": launches["mega_rx"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "correlate", "route": "cuda", "source": src + "correlate.cu",
+         "replaces": "minimodem_tpu/ops/pallas_demod.py:84",
+         "launches": host["host"]["launches"],
+         "max_abs_err": k3["correlate"]["max_abs_err"],
+         "ms": k3["correlate"]["ms"],
+         "plain_ms": k3["correlate"]["plain_ms"]},
+        {"name": "correlate_batch", "route": "cuda",
+         "source": src + "correlate.cu",
+         "replaces": "minimodem_tpu/ops/pallas_demod.py:138",
+         "launches": host["host-native"]["launches"],
+         "max_abs_err": k3["correlate_batch"]["max_abs_err"],
+         "ms": k3["correlate_batch"]["ms"],
+         "plain_ms": k3["correlate_batch"]["plain_ms"]},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,19 @@
-"""Build and load the CUDA kernels of csrc/ (K1 fused_score.cu, K2
-mega_rx.cu) as one shared library with a plain C interface.
+"""Build and load the CUDA kernels of csrc/ as one shared library with a
+plain C interface:
 
-At first use the sources are compiled with
+    K1  fused_score.cu  mm_fused_score  the fused scorer (ops/fused_score.py)
+    K2  mega_rx.cu      mm_mega_rx      the state machine (ops/mega_rx.py)
+    K3  correlate.cu    mm_correlate    the stage-1 correlation
+                                        (ops/correlate.py)
+
+At first use each source is compiled by its own nvcc, all started
+together,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC
+         -Xcompiler -fPIC -c
 
-into minimodem_tpu_torch/build/, keyed by a hash of the sources and the
+and the objects are linked with `nvcc -shared` into
+minimodem_tpu_torch/build/, keyed by a hash of the sources and the
 flags, and loaded with ctypes.  There is no --use_fast_math: the scorer
 relies on IEEE x/0 = inf, 0/0 = nan and correctly rounded sqrtf and
 division, and -fmad=false keeps every multiply-add two rounded ops, as in
@@ -31,7 +38,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -43,6 +50,7 @@ _SIGNATURES = {
     "mm_fused_score": [_P, _LL, _I, _I, _P, _I, _P, _I, _I, _F, _U, _U, _U,
                        _U, _I, _I, _I, _P, _P],
     "mm_mega_rx": [_P] * 12,
+    "mm_correlate": [_P, _LL, _I, _I, _P, _I, _P, _P],
 }
 
 
@@ -61,23 +69,31 @@ def _sources():
     return sorted(SRC_DIR.glob("*.cu"))
 
 
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; raise with the first failure's
+    stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for p, c, err in zip(procs, cmds, errs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(c)}\n{err}")
+
+
 def _build(nvcc: str, srcs, out: Path) -> None:
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp,
-                            *(str(s) for s in srcs)],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-        os.replace(tmp, out)          # atomic: concurrent loaders see a
-    finally:                          # whole library or none
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    build_seconds = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s.stem + ".o") for s in srcs]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                  for s, o in zip(srcs, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)          # atomic: concurrent loaders see a
+    build_seconds = time.perf_counter() - t0      # whole library or none
 
 
 def load() -> ctypes.CDLL:

@@ -17,7 +17,9 @@ src/fsk.c:117-174 bit analysis, :178-446 frame analysis):
       frame start, from shifted slices of the pass-1 planes.
 
 `correlate` and `score_frame_channels` are the plain version of the fused
-CUDA scorer (ops/fused_score.py, csrc/fused_score.cu): every op is one
+CUDA scorer (ops/fused_score.py, csrc/fused_score.cu) and, with the
+stage-1 correlation kernel (ops/correlate.py, csrc/correlate.cu), the
+host engines' chunked scorer `DemodScorer`: every op is one
 IEEE-rounded multiply, add, divide or sqrt, and every sum runs in
 ascending tap order, so the kernel reproduces them bit for bit.  The
 correlation is the float32 fused-multiply-add chain that XLA compiles the
@@ -30,10 +32,18 @@ magnitudes are sqrt(c*c + s*s) * scal (the fused TPU kernel's formula,
 minimodem_tpu/ops/pallas_score.py:228-231) where the XLA path uses hypot,
 and the comb sums add the taps in ascending order where XLA picks its own
 reduction tree.
+
+`correlate_any` picks the stage-1 route as the JAX package's does
+(minimodem_tpu/ops/demod.py:202-212): float32 filters of up to 4096 taps
+go to the CUDA kernel (its plain version on the CPU), longer float32
+filters to an FFT correlation, and float64 ("perfect-capable") geometries
+to a plain float64 chain.  Magnitudes are rounded to float32 right after
+the scaling, so every channel is float32 whatever the correlation's type.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,6 +52,8 @@ import torch
 from ..config import ModemConfig
 from ..utils.cfloat import F32_EPSILON, f32_div
 
+# direct correlation above this filter length would waste FLOPs; use FFT
+_DIRECT_CONV_MAX_NB = 4096
 # float64 scoring only pays off when confidence=inf is reachable and the
 # filter is short
 _F64_MAX_NB = 4096
@@ -191,6 +203,58 @@ def correlate(x: torch.Tensor, basis: torch.Tensor, s_len: int) -> torch.Tensor:
     return acc
 
 
+def correlate_direct(x: torch.Tensor, basis: torch.Tensor,
+                     s_len: int) -> torch.Tensor:
+    """The float64 route: corr[..., c, s] = sum_j basis[c, j] * x[..., s + j]
+    as a plain chain of products and sums in ascending j, in x's dtype
+    (the JAX package's _correlate_direct, minimodem_tpu/ops/demod.py:
+    165-183, run in float64).  Each step rounds twice where XLA may
+    contract it into one FMA; the difference stays below float64's last
+    bits and vanishes when the magnitudes are rounded to float32, except
+    on double-rounding ties.  x: [..., >= s_len + nb - 1],
+    basis: [4, nb] -> [..., 4, s_len]."""
+    nb = basis.shape[1]
+    acc = torch.zeros(x.shape[:-1] + (4, s_len), dtype=x.dtype,
+                      device=x.device)
+    for j in range(nb):
+        acc = acc + basis[:, j, None] * x[..., None, j:j + s_len]
+    return acc
+
+
+def correlate_fft(x: torch.Tensor, basis: torch.Tensor,
+                  s_len: int) -> torch.Tensor:
+    """FFT cross-correlation for long float32 filters (the JAX package's
+    _correlate_fft, minimodem_tpu/ops/demod.py:186-195): the same
+    power-of-two transform length from the row length.  The transforms sum
+    in another order than XLA's, so the results agree within FFT
+    round-off, not bit for bit.  x: [..., L] -> [..., 4, s_len]."""
+    length = int(x.shape[-1])
+    fft_len = 1 << (length - 1).bit_length()
+    xf = torch.fft.rfft(x, fft_len)
+    bf = torch.fft.rfft(basis, fft_len)
+    corr = torch.fft.irfft(xf[..., None, :] * torch.conj(bf), fft_len)
+    return corr[..., :s_len]
+
+
+def correlate_any(x: torch.Tensor, geo: DemodGeometry, basis_np: np.ndarray,
+                  s_len: int) -> torch.Tensor:
+    """Stage 1 by the route the geometry needs (the JAX package's
+    correlate_any): float64 chain, FFT for nb > 4096, else the CUDA kernel
+    (ops/correlate.py).  x: [B, s_len + halo - max_begin] float32 rows;
+    basis_np: make_basis(geo) in float64 for float64 geometries, else
+    float32 -> corr [B, 4, s_len] in float64 or float32."""
+    if geo.use_f64:
+        basis = torch.from_numpy(np.asarray(basis_np, np.float64))
+        return correlate_direct(x.to(torch.float64), basis.to(x.device),
+                                s_len)
+    if geo.nb > _DIRECT_CONV_MAX_NB:
+        basis = torch.from_numpy(np.asarray(basis_np, np.float32))
+        return correlate_fft(x, basis.to(x.device), s_len)
+    from .correlate import correlate_kernel
+
+    return correlate_kernel(x, basis_np, s_len)
+
+
 # ======================================================================
 # pass 1b + 2: band magnitudes -> per-offset frame channels
 # ======================================================================
@@ -204,19 +268,25 @@ def score_frame_channels(corr: torch.Tensor, geo: DemodGeometry,
                          t_len: int) -> dict:
     """Band magnitudes -> the six per-offset frame channels.
 
-    corr: [..., 4, >= t_len + max_begin] float32.  Returns a dict of
-    [..., t_len] tensors: conf_data, conf_sync, ampl_data, ampl_sync
-    (float32) and bits_lo, bits_hi (int32 holding the uint32 bit
-    patterns, frame bits packed LSB-first, reference: src/fsk.c:439-441).
+    corr: [..., 4, >= t_len + max_begin] float32, or float64 for the
+    float64 geometries.  Returns a dict of [..., t_len] tensors:
+    conf_data, conf_sync, ampl_data, ampl_sync (float32) and bits_lo,
+    bits_hi (int32 holding the uint32 bit patterns, frame bits packed
+    LSB-first, reference: src/fsk.c:439-441).
     """
     eps = float(F32_EPSILON)
     scal = float(np.float32(geo.magscalar))
     c = corr
-    # band magnitudes (reference: src/fsk.c:107-114,130-159)
-    mag_mark = torch.sqrt(c[..., 0, :] * c[..., 0, :]
-                          + c[..., 1, :] * c[..., 1, :]) * scal
-    mag_space = torch.sqrt(c[..., 2, :] * c[..., 2, :]
-                           + c[..., 3, :] * c[..., 3, :]) * scal
+    # band magnitudes (reference: src/fsk.c:107-114,130-159), rounded to
+    # float32 after the scaling as the JAX package does
+    # (minimodem_tpu/ops/demod.py:227-229): every later decision and sum
+    # is float32 whatever the correlation's type
+    mag_mark = (torch.sqrt(c[..., 0, :] * c[..., 0, :]
+                           + c[..., 1, :] * c[..., 1, :]) * scal
+                ).to(torch.float32)
+    mag_space = (torch.sqrt(c[..., 2, :] * c[..., 2, :]
+                            + c[..., 3, :] * c[..., 3, :]) * scal
+                 ).to(torch.float32)
     bit = mag_mark > mag_space                       # fsk.c:161 strict
     sig = torch.where(bit, mag_mark, mag_space)
     noise = torch.where(bit, mag_space, mag_mark)
@@ -226,7 +296,7 @@ def score_frame_channels(corr: torch.Tensor, geo: DemodGeometry,
         off = int(geo.bit_begin[k])
         return arr[..., off:off + t_len]
 
-    zero = torch.zeros(c.shape[:-2] + (t_len,), dtype=c.dtype,
+    zero = torch.zeros(c.shape[:-2] + (t_len,), dtype=torch.float32,
                        device=c.device)
     izero = torch.zeros(zero.shape, dtype=torch.int32, device=c.device)
     total_sig, total_noise, mark_sig = zero, zero, zero
@@ -255,7 +325,7 @@ def score_frame_channels(corr: torch.Tensor, geo: DemodGeometry,
     # multiplies by its reciprocal, which rounds differently from the
     # kernel's (and the reference's) true division
     n_bits_f = torch.full_like(zero, float(geo.n_bits))
-    n_mark_f = n_mark.to(c.dtype)
+    n_mark_f = n_mark.to(torch.float32)
     n_space_f = n_bits_f - n_mark_f
     space_sig = total_sig - mark_sig
     # averages guarded like C (division skipped when count==0,
@@ -283,3 +353,87 @@ def score_frame_channels(corr: torch.Tensor, geo: DemodGeometry,
         "bits_lo": bits_lo,
         "bits_hi": bits_hi,
     }
+
+
+# ======================================================================
+# the host engines' chunked scorer
+# ======================================================================
+
+CHANNELS = ("conf_data", "conf_sync", "ampl_data", "ampl_sync", "bits_lo",
+            "bits_hi")
+
+
+@functools.lru_cache(maxsize=64)
+def _build_score_fn(geo: DemodGeometry, t_len: int, device: str):
+    """The scoring function for a fixed chunk length on one device (the
+    JAX package's _build_score_fn, minimodem_tpu/ops/demod.py:301-325).
+
+    Input:  x [B, t_len + halo] float32 rows (any row stride), moved to
+            `device` if they lie elsewhere
+    Output: [B, 6, t_len] int32 on `device`, the CHANNELS in order (floats
+            bit-cast), so one copy brings a batch of chunks to the host.
+    """
+    basis_np = make_basis(geo, np.float64 if geo.use_f64 else np.float32)
+    s_len = t_len + geo.max_begin  # offsets where bit windows may start
+
+    def score(x: torch.Tensor) -> torch.Tensor:
+        x = x.to(device)
+        ch = score_frame_channels(correlate_any(x, geo, basis_np, s_len),
+                                  geo, t_len)
+        return torch.stack([ch[k].view(torch.int32) for k in CHANNELS],
+                           dim=1)
+
+    return score
+
+
+def _unstack(planes: np.ndarray) -> dict:
+    """[..., 6, T] int32 host planes -> the channel dict the host state
+    machines read: float32 conf/ampl and uint32 bits, as the JAX scorer
+    returns them."""
+    return {k: np.ascontiguousarray(planes[..., i, :]).view(
+                np.uint32 if k.startswith("bits") else np.float32)
+            for i, k in enumerate(CHANNELS)}
+
+
+class DemodScorer:
+    """Chunked scoring driver on one device: feed absolute-position sample
+    data, get per-offset score arrays on the host (the JAX package's
+    DemodScorer, minimodem_tpu/ops/demod.py:328-348)."""
+
+    BATCH = 64                   # chunks per score_chunks launch
+
+    def __init__(self, cfg: ModemConfig, precision: str = "auto",
+                 chunk_len: int = 1 << 17, device="cpu"):
+        self.geo = geometry_from_config(cfg, precision)
+        # amortize huge halos (very low baud rates) with bigger chunks
+        self.chunk_len = max(chunk_len, self.geo.halo // 2)
+        self.device = torch.device(device)
+        self._fn = _build_score_fn(self.geo, self.chunk_len,
+                                   str(self.device))
+
+    def score(self, samples: np.ndarray) -> dict:
+        """Score offsets [0, chunk_len) of ``samples`` (one chunk, the
+        K3a form); the array is zero-padded/truncated to chunk_len +
+        halo."""
+        need = self.chunk_len + self.geo.halo
+        x = np.zeros((1, need), dtype=np.float32)
+        n = min(len(samples), need)
+        x[0, :n] = samples[:n]
+        planes = self._fn(torch.from_numpy(x))
+        return _unstack(planes[0].cpu().numpy())
+
+    def score_chunks(self, samples: np.ndarray) -> dict:
+        """Score every chunk of a whole stream (at least one) in batched
+        calls of up to BATCH overlapping chunk rows (the K3b form).
+        Returns [n_chunks * chunk_len] arrays; chunk i's slice is
+        bit-identical with score(samples[i * chunk_len:])."""
+        t_len, halo = self.chunk_len, self.geo.halo
+        n_chunks = -(-max(len(samples), 1) // t_len)
+        x = np.zeros(n_chunks * t_len + halo, np.float32)
+        x[:len(samples)] = samples
+        rows = torch.from_numpy(x).to(self.device).unfold(
+            0, t_len + halo, t_len)                  # views, no copy
+        parts = [self._fn(rows[i:i + self.BATCH]).cpu()
+                 for i in range(0, n_chunks, self.BATCH)]
+        planes = torch.cat(parts).permute(1, 0, 2).reshape(6, -1)
+        return _unstack(planes.numpy())

@@ -1,3 +1,3 @@
-"""Receiver: event rendering over the device pipeline."""
+"""Receiver: the device engine's event rendering and the host engines."""
 
-from .engine import Receiver  # noqa: F401
+from .engine import Receiver, ScoreProvider  # noqa: F401

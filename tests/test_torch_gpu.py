@@ -5,9 +5,9 @@ only torch and the port (no jax), so it runs on the GPU machine as is:
 
     python -m pytest tests/test_torch_gpu.py -q
 
-Tolerances: K1's planes are compared bit for bit (the kernel and the plain
-version do the same IEEE-rounded ops in the same order); K2's events,
-bytes and carry are compared exactly.
+Tolerances: K1's planes and K3's correlations are compared bit for bit
+(the kernel and the plain version do the same IEEE-rounded ops in the
+same order); K2's events, bytes and carry are compared exactly.
 """
 
 import io
@@ -62,6 +62,33 @@ def test_fused_kernel_equals_plain(cuda, mode):
     assert FusedScorer.launches == launches + 1
     p = score_planes_plain(xt, scorer.geo, t_total)
     np.testing.assert_array_equal(k.cpu().numpy(), p.cpu().numpy())
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("mode", ["1200", "same", "rtty"])
+def test_correlate_kernel_equals_plain(cuda, mode, batch):
+    """K3 on overlapping chunk rows of one stream (a row stride, no copy),
+    as DemodScorer.score_chunks hands them over, equals the plain version
+    on the same rows."""
+    from minimodem_tpu_torch.ops.correlate import Correlator, correlate_plain
+    from minimodem_tpu_torch.ops.demod import geometry_from_config, make_basis
+
+    cfg, wav = _noisy(mode, 5, n_bytes=120)
+    geo = geometry_from_config(cfg, "float32")
+    t_len = 1 << 14
+    s_len = t_len + geo.max_begin
+    flat = np.zeros(batch * t_len + geo.halo, np.float32)
+    n = min(len(wav), flat.size)
+    flat[:n] = wav[:n]
+    rows = torch.from_numpy(flat).to(cuda).unfold(0, t_len + geo.halo, t_len)
+    assert rows.shape[0] == batch
+    corr = Correlator(make_basis(geo, np.float32))
+    launches = Correlator.launches + Correlator.batch_launches
+    k = corr(rows, s_len)
+    assert Correlator.launches + Correlator.batch_launches == launches + 1
+    p = correlate_plain(rows, corr.basis(cuda), s_len)
+    np.testing.assert_array_equal(k.cpu().numpy().view(np.uint32),
+                                  p.cpu().numpy().view(np.uint32))
 
 
 def _cases():
@@ -133,7 +160,8 @@ def test_pipelined_cuda_equals_cpu(cuda):
     assert outs[1][0] == p1 + b"tail"
 
 
-def test_cli_cuda_equals_cpu(cuda, tmp_path):
+@pytest.mark.parametrize("engine", ["device", "host", "host-native"])
+def test_cli_cuda_equals_cpu(cuda, tmp_path, engine):
     import sys
 
     from minimodem_tpu_torch import cli
@@ -162,10 +190,52 @@ def test_cli_cuda_equals_cpu(cuda, tmp_path):
         old = sys.stdout, sys.stderr
         sys.stdout, sys.stderr = _Out(), io.StringIO()
         try:
-            rc = cli.main(["--rx", "--file", path, "1200", "--device", dev])
+            rc = cli.main(["--rx", "--file", path, "1200", "--device", dev,
+                           "--engine", engine])
             results.append((rc, sys.stdout.buffer.getvalue(),
                             sys.stderr.getvalue()))
         finally:
             sys.stdout, sys.stderr = old
     assert results[0] == results[1]
     assert results[0][0] == 0 and "NOCARRIER" in results[0][2]
+
+
+@pytest.mark.parametrize("case", ["perfect", "autodetect"])
+def test_host_engine_cuda_equals_cpu(cuda, case):
+    """The host engine's float64 route (Bell-202 at 24 kHz with 1200/2400
+    Hz tones: confidence=inf) and -a with a retune between two bursts, on
+    the card and on the CPU."""
+    from minimodem_tpu_torch.codecs import get_codec
+    from minimodem_tpu_torch.config import RxOptions
+    from minimodem_tpu_torch.models.presets import bell_like
+    from minimodem_tpu_torch.rx.engine import Receiver
+    from minimodem_tpu_torch.utils.cfloat import f32
+
+    def modem(baud, rate, mark, space):
+        m = _modem(str(baud))
+        m.preset = bell_like(baud, rate, mark_f=f32(mark), space_f=f32(space))
+        m.cfg = m.preset.cfg
+        return m
+
+    if case == "perfect":
+        m = modem(1200, 24000, 1200, 2400)
+        cfg, samples, opts = m.cfg, m.modulate(b"perfect line\n"), {}
+    else:
+        w1 = modem(300, 24000, 1200, 2400).modulate(b"AT 1200")
+        w2 = modem(300, 24000, 1800, 3000).modulate(b"AT 1800")
+        samples = np.concatenate([w1, np.zeros(24000, np.float32), w2])
+        cfg = bell_like(300, 24000).cfg
+        opts = {"carrier_autodetect_threshold": 0.001}
+    outs = []
+    for dev in ("cpu", cuda):
+        sink, err = io.BytesIO(), io.StringIO()
+        Receiver(cfg, RxOptions(**opts), get_codec("ascii8"), sink.write,
+                 err.write, device=dev).run(samples.copy(), engine="host")
+        outs.append((sink.getvalue(), err.getvalue()))
+    assert outs[0] == outs[1]
+    if case == "perfect":
+        assert outs[1][0] == b"perfect line\n"
+        assert "confidence=inf" in outs[1][1]
+        assert "(rate perfect)" in outs[1][1]
+    else:
+        assert outs[1][0] == b"AT 1200AT 1800"

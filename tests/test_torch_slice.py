@@ -197,8 +197,8 @@ def test_device_cuda_without_a_card_exits_1():
 
 @pytest.mark.parametrize("flags,item", [
     (["-a"], "queue 1 item 9"),
-    (["--engine", "host"], "queue 1 item 10"),
-    (["--engine", "host-native"], "queue 1 item 10"),
+    (["-a", "--engine", "device"], "queue 1 item 9"),
+    (["--benchmarks"], "queue 1 item 7"),
 ])
 def test_unported_features_name_their_roadmap_item(tmp_path, flags, item):
     path = str(tmp_path / "f.wav")
@@ -207,6 +207,8 @@ def test_unported_features_name_their_roadmap_item(tmp_path, flags, item):
                                       "--device", "cpu", *flags])
     assert code == 1 and out == b""
     assert err.startswith("E: ") and err.count("\n") == 1 and item in err
+    if "-a" in flags:                  # and it names the route that works
+        assert "--engine host" in err
 
 
 def test_tx_matches_jax_cli(tmp_path):
