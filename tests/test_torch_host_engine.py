@@ -187,7 +187,12 @@ def _decode(package, cfg, samples, engine, codec_name="ascii8", **optkw):
 
 
 def _engine_case(name):
-    """The signals of tests/test_engines.py (rtty with a shorter line)."""
+    """The signals of tests/test_engines.py (rtty with a shorter line),
+    and 10 baud at 48 kHz, whose 4800-sample bit window takes the FFT
+    route."""
+    if name == "10":
+        m = FskModem("10")
+        return m, m.modulate(b"ok\n"), b"ok\n", "ascii8"
     if name == "noisy1200":
         m = FskModem("1200")
         payload = bytes(range(33, 127)) * 3
@@ -207,9 +212,13 @@ def _engine_case(name):
 
 @pytest.mark.parametrize("engine", ["host", "host-native"])
 @pytest.mark.parametrize("case", ["1200", "300", "same", "rtty",
-                                  "noisy1200"])
+                                  "noisy1200", "10"])
 def test_receiver_matches_jax(case, engine):
+    from minimodem_tpu_torch.ops.demod import geometry_from_config
+
     m, samples, payload, codec = _engine_case(case)
+    assert (geometry_from_config(_port_cfg(m.cfg)).nb > 4096) == (
+        case == "10")
     ref = _decode("jax", m.cfg, samples, engine, codec)
     got = _decode("port", m.cfg, samples, engine, codec)
     assert got == ref
