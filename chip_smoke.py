@@ -10,11 +10,15 @@ one line each; any failure exits non-zero:
      and the nvcc build of the kernels in minimodem_tpu_torch/csrc;
   2. K1, the fused scorer, against its plain PyTorch version on the card
      at the main path's shape (one stream, one 1 << 21 segment of
-     Bell-202 audio plus uniform noise of amplitude 0.3): bits plane
-     equal, NaN/+inf at the same offsets, finite conf/ampl within
-     rtol 2e-6, atol 1e-5;
+     Bell-202 audio plus uniform noise of amplitude 0.3): every word of
+     the planes bit for bit (NaN/+inf classes and conf/ampl within
+     rtol 2e-6, atol 1e-5 are reported beside);
   3. K2, the state machine, on K1's planes against its plain version on
-     a CPU copy of the same planes: identical events, bytes and carry;
+     a CPU copy of the same planes: identical events, bytes and carry,
+     with rings of 4 to 18 stages; then 160 streams of differing totals,
+     a carried-in state at a pos off the ring's window grid, rtty, NOAA
+     SAME (the dual layout) and the widest scan window K2 serves (4.5
+     baud, the ring of confidence planes only) in both layouts;
   4. end to end: ~60 s of Bell-202 text (two segments with a carried
      state) decoded by `minimodem-tpu-torch --rx --file f.wav 1200`,
      in process (launch counts and plain-version calls recorded) and as
@@ -56,6 +60,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 1200
 RTOL, ATOL = 2e-6, 1e-5
+# the kernels whose register and shared-memory use the run prints
+PTXAS_SOURCES = ("fused_score", "mega_rx", "correlate")
+# published H100 SXM peaks (the bound of each kernel): HBM bytes/s and
+# FP32 FLOP/s outside the tensor cores
+HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
+# one step of K2's chain of decisions: a shared-memory round trip and the
+# warp's pick (~90 cycles at ~1.75 GHz)
+K2_STEP_NS = 50.0
 
 
 def fail(msg: str) -> None:
@@ -74,6 +86,21 @@ def card_line() -> str:
     if r.returncode != 0:
         fail(f"nvidia-smi: {r.stderr.strip()}")
     return r.stdout.strip().splitlines()[0]
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def fmt_us(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} us"
+
+
+def bound(n_bytes: float, flop: float):
+    """(least time in ms on the card, what sets it): the larger of the
+    bytes over the HBM rate and the FLOPs over the FP32 peak."""
+    t_b, t_f = n_bytes / HBM_BPS * 1e3, flop / FP32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -110,6 +137,27 @@ def kernel_device_ms(fn, reps: int, kernel: str):
         if kernel in e.key and us > 0 and e.count:
             return us / e.count / 1e3
     return None
+
+
+def device_ms_per_call(fn, reps: int):
+    """Mean device time per call of fn() over reps calls, every kernel
+    and copy it launches summed (torch.profiler); None when the profiler
+    saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0)
+             for e in prof.key_averages()
+             if getattr(e, "device_type", None)
+             == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
 
 
 def run_cli_inprocess(argv):
@@ -227,24 +275,204 @@ def k3_check(audio, dev) -> dict:
     rows = torch.from_numpy(flat).to(dev).unfold(0, t_len + geo.halo, t_len)
     corr = Correlator(make_basis(geo, np.float32))
     basis = corr.basis(dev)
+    weight = basis[:, None]                       # [4, 1, nb]
     out = {}
     for name, x in (("correlate", rows[:1]), ("correlate_batch", rows)):
         k = corr(x, s_len)
         p = correlate_plain(x, basis, s_len)
+        xin = x[:, None, :s_len + geo.nb - 1]
+
+        def lib(xin=xin):
+            # the yardstick: one PyTorch call of the same function
+            # (cuDNN, TF32 off); the port never calls it
+            return torch.nn.functional.conv1d(xin, weight)
+
+        c = lib()
         torch.cuda.synchronize()
         kn, pn = k.cpu().numpy(), p.cpu().numpy()
+        b, n_out = x.shape[0], 4 * s_len
         out[name] = {
             "shape": f"{list(x.shape)} (row stride {x.stride(0)}) -> "
                      f"{list(kn.shape)}",
             "words": int(np.count_nonzero(kn.view(np.uint32)
                                           != pn.view(np.uint32))),
             "max_abs_err": float(np.abs(kn.astype(np.float64) - pn).max()),
+            "conv1d_err": float(np.abs(c.cpu().numpy().astype(np.float64)
+                                       - pn).max()),
             "ms": cuda_ms(lambda: corr(x, s_len), 20),
             "kernel_ms": kernel_device_ms(lambda: corr(x, s_len), 20,
                                           "correlate_kernel"),
             "plain_ms": cuda_ms(lambda: correlate_plain(x, basis, s_len), 3),
+            "library_ms": cuda_ms(lib, 20),
+            "library_device_ms": device_ms_per_call(lib, 20),
+            # each input row read once, each output written once; 4 * nb
+            # FMAs (2 FLOP each) per output offset and stream
+            "bytes": 4 * b * (x.shape[1] + n_out),
+            "flop": 2 * geo.nb * b * n_out,
         }
     return out
+
+
+def k2_compare(mega, planes, totals, thr, ci, cf, finalize):
+    """K2 on the card against mega_rx_plain on a CPU copy of the same
+    inputs -> (identical events, bytes and carry; the kernel's outputs;
+    the plain version's outputs)."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch.ops.device_rx import _collect
+    from minimodem_tpu_torch.ops.mega_rx import mega_rx_plain
+
+    b = planes.shape[0]
+    out_k = mega(planes, totals, thr, ci, cf, finalize)
+    torch.cuda.synchronize()
+    out_p = mega_rx_plain(mega.st, finalize, planes.cpu().numpy(),
+                          totals.cpu().numpy(), thr, ci.cpu().numpy(),
+                          cf.cpu().numpy())
+    ev_k = _collect(out_k[:4], b)
+    ev_p = _collect(tuple(torch.from_numpy(a) for a in out_p[:4]), b)
+    same = (all(len(u) == len(v) and all(np.array_equal(s, t)
+                                         for s, t in zip(u, v))
+                for u, v in zip(ev_k, ev_p))
+            and np.array_equal(out_k[4].cpu().numpy(), out_p[4])
+            and np.array_equal(out_k[5].cpu().numpy().view(np.int32),
+                               out_p[5].view(np.int32)))
+    return same, out_k, out_p
+
+
+def fft_planes(cfg, x, t_total):
+    """Score planes [B, P, t_total] for a geometry whose bit span K1's
+    tiles cannot hold (very slow bauds): the FFT correlation and the
+    frame channels in PyTorch on the card, as the host engine scores
+    them.  Only K2 is under test on them."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch.ops.demod import (
+        correlate_fft, geometry_from_config, make_basis, score_frame_channels)
+
+    geo = geometry_from_config(cfg)
+    basis = torch.from_numpy(make_basis(geo, np.float32)).to(x.device)
+    corr = correlate_fft(x[:, :t_total + geo.halo], basis,
+                         t_total + geo.max_begin)
+    ch = score_frame_channels(corr, geo, t_total)
+    rows = ["conf_data", "ampl_data", "bits_lo"]
+    if tuple(geo.req_sync) != tuple(geo.req_data):
+        rows += ["conf_sync", "ampl_sync"]
+    return torch.stack([ch[r].view(torch.int32) for r in rows],
+                       dim=1).contiguous()
+
+
+def k2_cases(audio, main_planes, main_total, dev) -> list:
+    """K2 against its plain version beyond the main path's B = 1 segment:
+    160 streams of differing totals (more CTAs than SMs); a carried-in
+    state whose pos is not window-aligned; rtty through K1; NOAA SAME (the
+    dual layout, every plane in the ring); the widest scan window K2
+    serves (4.5 baud at 48 kHz, the confidence plane only in the ring),
+    in the single and the dual layout.  -> rows of the checks."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.models.presets import bell_like
+    from minimodem_tpu_torch.ops.device_rx import (
+        _round_up_pow2, device_rx_key, geo_from_key, make_score_packer_planes)
+    from minimodem_tpu_torch.ops.mega_rx import (
+        MegaReceiver, MegaRx, MegaStatics, mega_rx_plain)
+
+    thr = (1.5, 2.3)
+    rng = np.random.default_rng(SEED + 7)
+    rows = []
+
+    def zero_carry(b):
+        ci, cf = MegaReceiver.carry_to_arrays(None, b)
+        return torch.from_numpy(ci).to(dev), torch.from_numpy(cf).to(dev)
+
+    def check(name, key, planes, totals, rx_one=False, carry=None,
+              finalize=True, time_it=False):
+        t_total = planes.shape[2]
+        mega = MegaRx(MegaStatics.build(key, t_total, rx_one))
+        tt = torch.tensor(totals, dtype=torch.int32, device=dev)
+        ci, cf = carry if carry is not None else zero_carry(len(totals))
+        same, out_k, _ = k2_compare(mega, planes, tt, thr, ci, cf, finalize)
+        r = {"name": name, "shape": list(planes.shape), "same": same,
+             "ring": mega.ring, "events": int(out_k[1].sum()),
+             "bytes": int(out_k[3].sum()),
+             "searches": mega_rx_plain.searches.copy(),
+             "words": mega_rx_plain.words, "out": out_k}
+        if time_it:
+            r["ms"] = kernel_device_ms(
+                lambda: mega(planes, tt, thr, ci, cf, finalize), 5,
+                "mega_rx_kernel")
+        rows.append(r)
+        if not same:
+            fail(f"K2 {name} disagrees with its plain version")
+        return r
+
+    def noisy(wav, amp=0.6):
+        return (wav + (rng.random(wav.size, dtype=np.float32)
+                       - np.float32(0.5)) * np.float32(amp)).astype(
+                           np.float32)
+
+    def k1_planes(cfg, streams, t_total):
+        key = device_rx_key(cfg)
+        packer, _ = make_score_packer_planes(key, t_total, "float32")
+        x = np.zeros((len(streams), t_total + geo_from_key(key).halo),
+                     np.float32)
+        for i, s in enumerate(streams):
+            n = min(len(s), x.shape[1])
+            x[i, :n] = s[:n]
+        return key, packer(torch.from_numpy(x).to(dev))
+
+    # 160 Bell-202 streams, each its own slice of the noisy audio
+    cfg = FskModem("1200", device="cpu").cfg
+    totals = [120000 - 311 * i for i in range(160)]
+    t_total = _round_up_pow2(max(totals) + cfg.nsamples_overscan + 1)
+    noisy_audio = noisy(audio)
+    key, planes = k1_planes(cfg, [noisy_audio[9973 * i:][:n]
+                                  for i, n in enumerate(totals)], t_total)
+    check("B=160 Bell-202", key, planes, totals, time_it=True)
+    del planes
+
+    # a carried-in state: the main segment in two calls, split where the
+    # first call's exit pos is not a multiple of the ring's window
+    key = device_rx_key(cfg)
+    for cut in range(main_total // 2, main_total // 2 + 4000, 97):
+        first = check("carry: first call", key, main_planes, [cut],
+                      finalize=False)
+        ci = first["out"][4]
+        if int(ci[0, 0]) % first["ring"].window:
+            break
+        rows.pop()
+    check(f"carry: resumed at pos {int(ci[0, 0])}", key, main_planes,
+          [main_total], carry=(ci, first["out"][5]))
+
+    # rtty and NOAA SAME (dual layout) through K1, two streams each
+    for mode, text in (("rtty", b"RYRY THE QUICK BROWN FOX 73 " * 8),
+                       ("same", b"ZCZC-WXR-RWT-020103+0015-1231200-KLOX/NWS-"
+                                b" " * 4)):
+        m = FskModem(mode, device="cpu")
+        wav = noisy(m.modulate(text), 0.3)
+        n = len(wav)
+        t_total = _round_up_pow2(n + m.cfg.nsamples_overscan + 1)
+        key, planes = k1_planes(m.cfg, [wav, wav], t_total)
+        check(mode, key, planes, [n, n * 2 // 3])
+
+    # the widest scan window K2 serves: 4.5 baud at 48 kHz
+    for sync in (False, True):
+        kw = {"do_rx_sync": True, "do_tx_sync_bytes": 2,
+              "sync_byte": 0xAB} if sync else {}
+        pre = bell_like(4.5, 48000, **kw)
+        m = FskModem("1200", device="cpu")
+        m.preset, m.cfg = pre, pre.cfg
+        wav = noisy(m.modulate(b"slow 4.5 baud"), 0.3)
+        n = len(wav)
+        t_total = _round_up_pow2(n + pre.cfg.nsamples_overscan + 1)
+        key = device_rx_key(pre.cfg)
+        x = np.zeros((2, t_total + geo_from_key(key).halo), np.float32)
+        x[:, :n] = wav
+        planes = fft_planes(pre.cfg, torch.from_numpy(x).to(dev), t_total)
+        check(f"4.5 baud{' dual' if sync else ''} (scan window "
+              f"{max(MegaStatics.build(key, t_total, False).try_max)})",
+              key, planes, [n, n * 3 // 4])
+    return rows
 
 
 def host_engines(wav: str, text: bytes, err_device: str) -> dict:
@@ -425,7 +653,7 @@ def main() -> int:
     from minimodem_tpu_torch.models.modem import FskModem
     from minimodem_tpu_torch.ops import _kernels
     from minimodem_tpu_torch.ops.device_rx import (
-        PipelinedReceiver, _collect, _round_up_pow2, device_rx_key,
+        PipelinedReceiver, _round_up_pow2, device_rx_key,
         geo_from_key)
     from minimodem_tpu_torch.ops.fused_score import (
         FusedScorer, score_planes_plain)
@@ -446,6 +674,10 @@ def main() -> int:
     phase(f"build: kernels loaded in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_kernels.build_seconds} s) from "
           f"{_kernels.SRC_DIR.relative_to(ROOT)}")
+    for name, lines in _kernels.ptxas_report(PTXAS_SOURCES).items():
+        keep = [ln.split(":", 1)[-1].strip() for ln in lines
+                if "Used" in ln or "spill" in ln or "entry function" in ln]
+        phase(f"ptxas -v {name}.cu: " + " | ".join(keep))
 
     # ---- inputs: ~60 s of printable Bell-202 text ----
     rng = np.random.default_rng(SEED)
@@ -492,9 +724,11 @@ def main() -> int:
           f"nan/inf class mismatches {cls_bad}, finite conf/ampl outside "
           f"rtol {RTOL} atol {ATOL}: {tol_bad}, max_abs_err {k1_err}, "
           f"bit-different words {exact}")
-    if bits_bad or cls_bad or tol_bad:
+    if bits_bad or cls_bad or tol_bad or exact:
         fail("K1 disagrees with its plain version")
     k1_ms = cuda_ms(lambda: scorer(x, t_total), 20)
+    k1_kernel_ms = kernel_device_ms(lambda: scorer(x, t_total), 20,
+                                    "fused_score_kernel")
     k1_plain_ms = cuda_ms(
         lambda: score_planes_plain(x, scorer.geo, t_total), 3)
 
@@ -505,26 +739,55 @@ def main() -> int:
     ci_np, cf_np = MegaReceiver.carry_to_arrays(None, 1)
     ci, cf = torch.from_numpy(ci_np).to(dev), torch.from_numpy(cf_np).to(dev)
     thr = (1.5, 2.3)
-    out_k = mega(planes, totals, thr, ci, cf, False)
-    torch.cuda.synchronize()
-    tp0 = time.perf_counter()
-    out_p = mega_rx_plain(st, False, pk, np.asarray([total_nf], np.int32),
-                          thr, ci_np, cf_np)
-    k2_plain_ms = (time.perf_counter() - tp0) * 1e3
+    same, out_k, out_p = k2_compare(mega, planes, totals, thr, ci, cf, False)
+    k2_search = int(mega_rx_plain.searches[0])
+    k2_words = mega_rx_plain.words
     k2_err = float(np.abs(out_k[5].cpu().numpy().astype(np.float64)
                           - out_p[5]).max())
-    ev_k = _collect(out_k[:4], 1)[0]
-    ev_p = _collect(tuple(torch.from_numpy(a) for a in out_p[:4]), 1)[0]
-    same = (len(ev_k) == len(ev_p)
-            and all(np.array_equal(a, b) for a, b in zip(ev_k, ev_p))
-            and np.array_equal(out_k[4].cpu().numpy(), out_p[4])
-            and np.array_equal(out_k[5].cpu().numpy().view(np.int32),
-                               out_p[5].view(np.int32)))
-    phase(f"K2 mega_rx vs plain on K1's planes: {len(ev_k[0])} events, "
-          f"{len(ev_k[2])} bytes, identical events/bytes/carry: {same}")
+    tp0 = time.perf_counter()
+    mega_rx_plain(st, False, pk, np.asarray([total_nf], np.int32), thr,
+                  ci_np, cf_np)
+    k2_plain_ms = (time.perf_counter() - tp0) * 1e3
+    ring = mega.ring
+    phase(f"K2 mega_rx vs plain on K1's planes: {int(out_k[1][0])} events, "
+          f"{int(out_k[3][0])} bytes, {k2_search} frame searches, "
+          f"identical events/bytes/carry: {same}; ring G {ring.window} x S "
+          f"{ring.stages}, {ring.n_held} planes held, {ring.smem_bytes} B "
+          f"shared memory")
     if not same:
         fail("K2 disagrees with its plain version")
     k2_ms = cuda_ms(lambda: mega(planes, totals, thr, ci, cf, False), 5)
+    k2_kernel_ms = kernel_device_ms(
+        lambda: mega(planes, totals, thr, ci, cf, False), 5, "mega_rx_kernel")
+    sweep = []
+    for stages in (4, 6, 8, 12, 16, 18):
+        m_s = MegaRx(st, stages)
+        o_s = [a.cpu().numpy() for a in m_s(planes, totals, thr, ci, cf,
+                                              False)]
+        ne, nb_ = int(out_p[1][0]), int(out_p[3][0])
+        same_s = (int(o_s[1][0]) == ne and int(o_s[3][0]) == nb_
+                  and np.array_equal(o_s[0][0, :ne], out_p[0][0, :ne])
+                  and np.array_equal(o_s[2][0, :nb_], out_p[2][0, :nb_])
+                  and np.array_equal(o_s[4], out_p[4])
+                  and np.array_equal(o_s[5].view(np.int32),
+                                     out_p[5].view(np.int32)))
+        sweep.append(f"S {m_s.ring.stages} ({m_s.ring.n_held} planes, "
+                     f"{m_s.ring.smem_bytes} B): " + fmt_ms(kernel_device_ms(
+                         lambda: m_s(planes, totals, thr, ci, cf, False), 5,
+                         "mega_rx_kernel")) + f" identical {same_s}")
+        if not same_s:
+            fail(f"K2 with {stages} stages disagrees with its plain version")
+    phase("K2 ring depth sweep on the main segment (kernel alone, "
+          "torch.profiler): " + "; ".join(sweep) + f" ({card})")
+    k2_rows = k2_cases(audio, planes, total_nf, dev)
+    for r in k2_rows:
+        rg = r["ring"]
+        phase(f"K2 {r['name']} vs plain at {r['shape']}: identical "
+              f"events/bytes/carry {r['same']}; {r['events']} events, "
+              f"{r['bytes']} bytes, frame searches per stream max "
+              f"{int(r['searches'].max())}; ring G {rg.window} x S "
+              f"{rg.stages}, {'every plane' if rg.hold_all else 'confidence only'}"
+              f" ({rg.n_held}), {rg.smem_bytes} B")
 
     # ---- 4. end to end: a 60 s two-segment file decode ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -578,10 +841,24 @@ def main() -> int:
         autodetect_check(dev)
 
     # ---- 5. timings ----
-    phase(f"time K1 fused_score [1, {t_total + halo}]: kernel {k1_ms:.4f} "
-          f"ms, plain {k1_plain_ms:.4f} ms ({card})")
-    phase(f"time K2 mega_rx [1, {pk.shape[1]}, {t_total}]: kernel "
-          f"{k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms (CPU loop) ({card})")
+    phase(f"time K1 fused_score [1, {t_total + halo}] (tile "
+          f"{scorer.tile}, {-(-t_total // scorer.tile)} CTAs): "
+          f"{k1_ms:.4f} ms per wrapper call (CUDA events), "
+          f"{fmt_ms(k1_kernel_ms)} device time of the kernel alone "
+          f"(torch.profiler), plain {k1_plain_ms:.4f} ms ({card})")
+    k2_us_frame = None if k2_kernel_ms is None else \
+        1e3 * k2_kernel_ms / k2_search
+    phase(f"time K2 mega_rx [1, {pk.shape[1]}, {t_total}]: {k2_ms:.4f} ms "
+          f"per wrapper call (CUDA events), {fmt_ms(k2_kernel_ms)} device "
+          f"time of the kernel alone (torch.profiler) = "
+          f"{fmt_us(k2_us_frame)} per frame search ({k2_search} searches), "
+          f"plain {k2_plain_ms:.4f} ms (CPU loop) ({card})")
+    b160 = k2_rows[0]
+    n160 = int(b160["searches"].sum())
+    phase(f"time K2 {b160['name']} {b160['shape']}: {fmt_ms(b160['ms'])} "
+          f"device time of the kernel alone (torch.profiler) for {n160} "
+          f"frame searches in 160 streams (longest {int(b160['searches'].max())}"
+          f") ({card})")
     phase(f"time end to end (in process, warm): {e2e_s * 1e3:.1f} ms for "
           f"{n_samples / cfg.sample_rate:.1f} s audio = "
           f"{n_samples / cfg.sample_rate / e2e_s:.1f} audio s per wall s "
@@ -592,11 +869,16 @@ def main() -> int:
 
     # ---- 10. K3 and host-engine timings ----
     for name, r in k3.items():
-        dev_ms = ("not measured" if r["kernel_ms"] is None
-                  else f"{r['kernel_ms']:.4f} ms")
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flop"])
         phase(f"time K3 {name} {r['shape']}: kernel {r['ms']:.4f} ms per "
-              f"wrapper call (CUDA events), {dev_ms} device time of the "
-              f"kernel alone (torch.profiler), plain {r['plain_ms']:.4f} ms "
+              f"wrapper call (CUDA events), {fmt_ms(r['kernel_ms'])} device "
+              f"time of the kernel alone (torch.profiler), plain "
+              f"{r['plain_ms']:.4f} ms; library F.conv1d (TF32 off) "
+              f"{r['library_ms']:.4f} ms per call (CUDA events), "
+              f"{fmt_ms(r['library_device_ms'])} device time per call "
+              f"(torch.profiler), max_abs_err vs plain {r['conv1d_err']}; "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+              f"{r['bytes'] / 1e6:.1f} MB, {r['flop'] / 1e6:.1f} MFLOP) "
               f"({card})")
     for engine, r in host.items():
         phase(f"time --engine {engine} end to end (in process, warm): "
@@ -609,30 +891,55 @@ def main() -> int:
     phase(f"host engine split of one warm decode: {host_split_line} "
           f"({card})")
 
+    # K1: the audio row read and the planes written once; 4 * nb FMAs per
+    # scored offset (stage 2's comb sums are a few percent more)
+    geo1 = scorer.geo
+    k1_bound = bound(4 * (t_total + halo + pk.shape[1] * t_total),
+                     2 * 4 * geo1.nb * t_total)
+    # K2: the plane words its decisions read, the events, bytes and carry
+    # written; its FLOPs are a handful per frame.  The chain bound: one
+    # step per frame search, each waiting on the one before
+    k2_bound = bound(4 * k2_words + 32 * int(out_k[1][0])
+                     + int(out_k[3][0]) + 48, 0)
+    k2_chain_ms = k2_search * K2_STEP_NS * 1e-6
+    phase(f"bounds: K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}); K2 roofline "
+          f"{k2_bound[0]:.6f} ms ({k2_bound[1]}: {k2_words} plane words "
+          f"read), chain {k2_chain_ms:.4f} ms ({k2_search} searches x "
+          f"{K2_STEP_NS:.0f} ns) ({card})")
     src = "minimodem_tpu_torch/csrc/"
+    k3a, k3b = k3["correlate"], k3["correlate_batch"]
     print(json.dumps({"kernels": [
         {"name": "fused_score", "route": "cuda",
          "source": src + "fused_score.cu",
          "replaces": "minimodem_tpu/ops/pallas_score.py:417",
          "launches": launches["fused_score"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "kernel_ms": k1_kernel_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "mega_rx", "route": "cuda", "source": src + "mega_rx.cu",
          "replaces": "minimodem_tpu/ops/pallas_rx.py:1100",
          "launches": launches["mega_rx"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "kernel_ms": k2_kernel_ms, "us_per_frame": k2_us_frame,
+         "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1], "chain_bound_ms": k2_chain_ms,
+         "library_ms": None},
         {"name": "correlate", "route": "cuda", "source": src + "correlate.cu",
          "replaces": "minimodem_tpu/ops/pallas_demod.py:84",
          "launches": host["host"]["launches"],
-         "max_abs_err": k3["correlate"]["max_abs_err"],
-         "ms": k3["correlate"]["ms"],
-         "plain_ms": k3["correlate"]["plain_ms"]},
+         "max_abs_err": k3a["max_abs_err"], "ms": k3a["ms"],
+         "kernel_ms": k3a["kernel_ms"], "plain_ms": k3a["plain_ms"],
+         "bound_ms": k3a["bound_ms"], "bound_by": k3a["bound_by"],
+         "library_ms": k3a["library_ms"],
+         "library_device_ms": k3a["library_device_ms"]},
         {"name": "correlate_batch", "route": "cuda",
          "source": src + "correlate.cu",
          "replaces": "minimodem_tpu/ops/pallas_demod.py:138",
          "launches": host["host-native"]["launches"],
-         "max_abs_err": k3["correlate_batch"]["max_abs_err"],
-         "ms": k3["correlate_batch"]["ms"],
-         "plain_ms": k3["correlate_batch"]["plain_ms"]},
+         "max_abs_err": k3b["max_abs_err"], "ms": k3b["ms"],
+         "kernel_ms": k3b["kernel_ms"], "plain_ms": k3b["plain_ms"],
+         "bound_ms": k3b["bound_ms"], "bound_by": k3b["bound_by"],
+         "library_ms": k3b["library_ms"],
+         "library_device_ms": k3b["library_device_ms"]},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """High-level modem API: the library-facing counterpart of the CLI.
 
-    >>> m = FskModem("1200", device="cuda")
+    >>> m = FskModem("1200")             # device="cuda"; "cpu" for the CPU
     >>> wav = m.modulate(b"hello world\\n")
     >>> m.demodulate(wav)
     b'hello world\\n'
@@ -17,6 +17,7 @@ from ..codecs import get_codec
 from ..config import RxOptions, TxOptions
 from ..ops.tx import Transmitter
 from ..sigio import SampleFormat
+from ..utils import device as _device
 from .presets import PRESETS, Preset, bell_like
 
 
@@ -26,7 +27,7 @@ class FskModem:
                  tx_options: Optional[TxOptions] = None,
                  sample_format: SampleFormat = SampleFormat.FLOAT,
                  precision: str = "auto", usos: bool = True,
-                 device="cpu"):
+                 device=_device.DEFAULT):
         factory = PRESETS.get(str(mode).lower())
         if factory is not None:
             preset: Preset = factory(sample_rate=sample_rate)

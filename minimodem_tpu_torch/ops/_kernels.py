@@ -13,8 +13,9 @@ together,
          -Xcompiler -fPIC -c
 
 and the objects are linked with `nvcc -shared` into
-minimodem_tpu_torch/build/, keyed by a hash of the sources and the
-flags, and loaded with ctypes.  There is no --use_fast_math: the scorer
+minimodem_tpu_torch/build/, keyed by a hash of the sources, the shared
+header sm90.cuh (mbarriers, 1-D TMA) and the flags, and loaded with
+ctypes.  There is no --use_fast_math: the scorer
 relies on IEEE x/0 = inf, 0/0 = nan and correctly rounded sqrtf and
 division, and -fmad=false keeps every multiply-add two rounded ops, as in
 the plain PyTorch versions.  Every C entry returns cudaGetLastError();
@@ -106,7 +107,7 @@ def load() -> ctypes.CDLL:
         nvcc = nvcc_path()
         srcs = _sources()
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for s in srcs:
+        for s in sorted(SRC_DIR.glob("*.cu*")):      # sources and headers
             h.update(s.name.encode())
             h.update(s.read_bytes())
         out = BUILD_DIR / f"libmm_kernels-{h.hexdigest()[:16]}.so"
@@ -119,6 +120,22 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+def ptxas_report(names) -> dict:
+    """What ptxas says of each named source (registers, shared memory,
+    spills per kernel): one `nvcc -Xptxas -v -c` per source, all started
+    together, into a throw-away object.  -> {name: [lines]}."""
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = {n: subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             os.path.join(tmp, n + ".o"), str(SRC_DIR / (n + ".cu"))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for n in names}
+        return {n: [ln.strip() for ln in p.communicate()[0].splitlines()
+                    if ln.strip()] for n, p in procs.items()}
 
 
 def check(err: int, what: str) -> None:

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..config import ModemConfig
+from ..utils import device as _device
 from ..utils.cfloat import F32_EPSILON, f32_div
 
 # direct correlation above this filter length would waste FLOPs; use FFT
@@ -403,7 +404,7 @@ class DemodScorer:
     BATCH = 64                   # chunks per score_chunks launch
 
     def __init__(self, cfg: ModemConfig, precision: str = "auto",
-                 chunk_len: int = 1 << 17, device="cpu"):
+                 chunk_len: int = 1 << 17, device=_device.DEFAULT):
         self.geo = geometry_from_config(cfg, precision)
         # amortize huge halos (very low baud rates) with bigger chunks
         self.chunk_len = max(chunk_len, self.geo.halo // 2)
@@ -415,6 +416,7 @@ class DemodScorer:
         """Score offsets [0, chunk_len) of ``samples`` (one chunk, the
         K3a form); the array is zero-padded/truncated to chunk_len +
         halo."""
+        _device.require(self.device)
         need = self.chunk_len + self.geo.halo
         x = np.zeros((1, need), dtype=np.float32)
         n = min(len(samples), need)
@@ -427,6 +429,7 @@ class DemodScorer:
         calls of up to BATCH overlapping chunk rows (the K3b form).
         Returns [n_chunks * chunk_len] arrays; chunk i's slice is
         bit-identical with score(samples[i * chunk_len:])."""
+        _device.require(self.device)
         t_len, halo = self.chunk_len, self.geo.halo
         n_chunks = -(-max(len(samples), 1) // t_len)
         x = np.zeros(n_chunks * t_len + halo, np.float32)

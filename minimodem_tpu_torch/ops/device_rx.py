@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import ModemConfig
+from ..utils import device as _device
 from .demod import DemodGeometry, geometry_from_config
 
 FSK_ANALYZE_NSTEPS = 3          # reference: src/minimodem.c:1248
@@ -258,7 +259,7 @@ class DeviceReceiver:
     the per-stream (ev_type, ev_pay, byte_stream) tuples."""
 
     def __init__(self, cfg: ModemConfig, precision: str = "auto",
-                 rx_one: bool = False, device="cpu"):
+                 rx_one: bool = False, device=_device.DEFAULT):
         from .mega_rx import MegaReceiver
 
         self.cfg = cfg
@@ -331,7 +332,7 @@ class PipelinedReceiver:
 
     def __init__(self, cfg: ModemConfig, precision: str = "auto",
                  rx_one: bool = False, segment_len: int = 1 << 21,
-                 device="cpu"):
+                 device=_device.DEFAULT):
         from ..utils.cfloat import trunc_i
 
         self.cfg = cfg
@@ -358,6 +359,7 @@ class PipelinedReceiver:
         """Yield per-segment (ev_type, ev_pay, byte_stream) tuples."""
         from .mega_rx import MegaReceiver, mega_runner
 
+        _device.require(self.device)
         n = len(samples)
         if n <= self.segment_len:
             events, _ = DeviceReceiver(

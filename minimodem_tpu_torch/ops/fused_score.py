@@ -29,8 +29,11 @@ from .demod import DemodGeometry, correlate, make_basis, score_frame_channels
 # candidate offsets per CTA, largest first; the kernel stages the tile's
 # audio plus its halo and two float planes of (tile + max_begin) in shared
 # memory, so long-bit geometries take smaller tiles
-_TILES = (2048, 1024, 512, 256)
+_TILES = (4096, 2048, 1024, 512, 256)
 _SMEM_MAX = 227 * 1024
+# a tile of at least this many times max_begin recomputes at most 1/8 of
+# its offsets as halo
+_HALO_RATIO = 8
 
 
 def plane_rows(geo: DemodGeometry) -> int:
@@ -48,14 +51,28 @@ def _req_masks(req) -> tuple:
     return mask, val
 
 
-def _smem_bytes(geo: DemodGeometry, tile: int) -> int:
-    span = tile + geo.max_begin
-    return 4 * ((span + geo.nb) + 4 * geo.nb + 2 * span + geo.n_bits)
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def smem_bytes(geo: DemodGeometry, tile: int) -> int:
+    """Shared memory of K1's CTA (csrc/fused_score.cu): the basis as
+    [nb8][4], the audio [span8 + nb8], the signal and noise planes
+    [span8] each and the four phase-major offsets of each frame bit
+    [n_bits][4], with nb8 and span8 = tile + max_begin rounded up to 8."""
+    nb8, span8 = _round8(geo.nb), _round8(tile + geo.max_begin)
+    return 4 * (4 * nb8 + span8 + nb8 + 2 * span8 + 4 * geo.n_bits)
 
 
 def pick_tile(geo: DemodGeometry) -> int:
-    for tile in _TILES:
-        if _smem_bytes(geo, tile) <= _SMEM_MAX:
+    """The smallest tile of _TILES that is at least _HALO_RATIO *
+    max_begin (the largest where none is), stepped down until the CTA
+    fits its shared memory.  Bell-202 at 48 kHz: 4096, a 10% halo, 512
+    CTAs per 2^21-sample segment."""
+    fits = [t for t in _TILES if t >= _HALO_RATIO * geo.max_begin]
+    start = _TILES.index(fits[-1]) if fits else 0
+    for tile in _TILES[start:]:
+        if smem_bytes(geo, tile) <= _SMEM_MAX:
             return tile
     raise NotImplementedError(
         f"bit span {geo.max_begin + geo.nb} samples does not fit one CTA's "
@@ -134,7 +151,7 @@ class FusedScorer:
             basis.data_ptr(), geo.nb, begin.data_ptr(), geo.n_bits,
             geo.max_begin, float(np.float32(geo.magscalar)),
             self.d_mask, self.d_val, self.s_mask, self.s_val,
-            self.n_planes, self.tile, _smem_bytes(geo, self.tile),
+            self.n_planes, self.tile, smem_bytes(geo, self.tile),
             out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
         _kernels.check(err, "mm_fused_score")
         FusedScorer.launches += 1

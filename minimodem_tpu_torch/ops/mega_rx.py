@@ -19,11 +19,14 @@ Outputs: ev [B, max_events, 8] int32 records (lanes 0-5 payload, 6 type),
 n_ev [B], bytes [B, b_cap] uint8, n_by [B], and the carry out.  Byte
 positions in event records restart at 0 each call.
 
-`MegaRx.__call__` is the wrapper: CUDA planes launch csrc/mega_rx.cu, CPU
-planes run `mega_rx_plain` (a per-stream Python loop with numpy float32
-stats), anything else raises.  The TPU kernel's latency tricks
-(speculative multi-frame decode, fast-path probe, prefetched resident
-window, byte-ring blend) are not carried over.
+`MegaRx.__call__` is the wrapper: CUDA planes launch csrc/mega_rx.cu (one
+CTA per stream: a TMA-fed ring of score windows in shared memory, whose
+geometry `ring_geometry` picks, and a warp-parallel frame search, whose
+rule `find_frame_parallel` states), CPU planes run `mega_rx_plain` (a
+per-stream Python loop with numpy float32 stats), anything else raises.
+Of the TPU kernel's latency tricks the prefetched resident window is
+carried over as the ring; speculative multi-frame decode, the fast-path
+probe and the byte-ring blend are not.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import device as _device
 from .device_rx import (
     EV_CARRIER,
     EV_NOCARRIER,
@@ -172,6 +176,65 @@ class MegaStatics:
 
 
 # ======================================================================
+# the kernel's ring of score windows
+# ======================================================================
+
+RING_WINDOW = 1024            # G, samples per window (csrc/mega_rx.cu kG)
+RING_MIN_STAGES = 4
+SMEM_MAX = 232448             # dynamic shared memory a CTA may use on sm_90
+
+
+def ring_smem_bytes(n_held: int, stages: int) -> int:
+    """Shared memory of K2's CTA (csrc/mega_rx.cu smem_bytes): the ring
+    [n_held][stages * G] words, a full and an empty mbarrier per stage,
+    the four 32-lane candidate tables and the done flag."""
+    return 4 * n_held * stages * RING_WINDOW + 16 * stages + 4 * 4 * 32 + 16
+
+
+@dataclass(frozen=True)
+class Ring:
+    window: int        # G
+    stages: int        # S
+    hold_all: bool     # every plane held, else the confidence plane(s) only
+    n_held: int
+    smem_bytes: int
+
+
+def ring_geometry(st: MegaStatics, min_stages: int = RING_MIN_STAGES) -> Ring:
+    """G and S of K2's ring, and the planes it holds, from the geometry.
+
+    A search at pos reads [pos, pos + w_scan); the next frame starts at
+    most one advance later (a frame minus the overscan plus the offset
+    found, or a scan window without carrier).  The rule:
+
+        G * (S - 1) >= w_scan + max_advance
+
+    so the producer can have the next frame's windows in flight while
+    this frame decides.  The ring holds every plane when that fits in
+    SMEM_MAX, else the confidence plane(s) only (cd, and cs in the dual
+    layout).  Where not even those cover an advance (scan windows of
+    thousands of samples) it takes the stages that fit, which always hold
+    a scan window (G * (S - 1) >= w_scan, w_scan <= 16384): the search
+    stays exact, only its prefetch is shorter than a frame."""
+    n_all = 5 if st.dual else 3
+    n_conf = 2 if st.dual else 1
+    w_scan = max(st.try_max)
+    adv = max(w_scan - 1 + st.frame_nsamples - st.overscan, w_scan)
+    g = RING_WINDOW
+    stages = max(-(-(w_scan + adv) // g) + 1, min_stages)
+    for n_held in (n_all, n_conf):
+        if ring_smem_bytes(n_held, stages) <= SMEM_MAX:
+            return Ring(g, stages, n_held == n_all, n_held,
+                        ring_smem_bytes(n_held, stages))
+    stages = (SMEM_MAX - ring_smem_bytes(n_conf, 0)) // (
+        ring_smem_bytes(n_conf, 1) - ring_smem_bytes(n_conf, 0))
+    if g * (stages - 1) < w_scan:
+        raise NotImplementedError(
+            f"a scan window of {w_scan} samples does not fit K2's ring")
+    return Ring(g, stages, False, n_conf, ring_smem_bytes(n_conf, stages))
+
+
+# ======================================================================
 # plain version
 # ======================================================================
 
@@ -196,6 +259,8 @@ def _find_frame(conf, ampl, bits, t_scored, pos, cands, limit):
     JAX megakernel reads there.  Returns (conf, ampl, bits, t)."""
     best, bidx, bt = _F0, -1, 0
     for t in cands:
+        if t < 0:                      # -1 ends a padded table
+            break
         idx = pos + t
         if idx < 0 or idx >= t_scored:
             continue
@@ -207,6 +272,37 @@ def _find_frame(conf, ampl, bits, t_scored, pos, cands, limit):
     if bidx < 0:
         return _F0, _F0, 0, 0
     return best, ampl[bidx], int(bits[bidx]) & 0xFFFFFFFF, bt
+
+
+def find_frame_parallel(conf, ampl, bits, t_scored, pos, cands, limit):
+    """_find_frame as K2's warp computes it (csrc/mega_rx.cu search):
+    lane k holds candidate k of a table of up to 32 offsets (-1 ends it)
+    and its confidence cv (0 out of [0, t_scored)).  The winner is the
+    first lane with cv >= limit and cv > 0; else the first lane of the
+    largest cv > 0.  NaN never wins; with no cv > 0 there is no winner.
+    One max-reduction over a 32-bit key decides both: a hit's key is
+    0xff000000 | (31 - lane), above every positive float's bits (which
+    order as unsigned integers, +inf 0x7f800000 the largest), a miss's
+    key is cv's bits where cv > 0, else 0; then the first lane holding
+    the top key (a ballot, then find-first-set).  Same returns as
+    _find_frame."""
+    lanes = np.full(32, -1, np.int64)
+    lanes[:len(cands)] = cands
+    idx = pos + lanes
+    inb = (lanes >= 0) & (idx >= 0) & (idx < t_scored)
+    cv = np.where(inb, np.asarray(conf, np.float32)[
+        np.clip(idx, 0, max(t_scored - 1, 0))], _F0).astype(np.float32)
+    with np.errstate(invalid="ignore"):
+        pos_cv = cv > 0
+        hit = pos_cv & (cv >= np.float32(limit))
+    key = np.where(hit, np.uint32(0xFF000000) | (31 - np.arange(32)).astype(
+        np.uint32), np.where(pos_cv, cv.view(np.uint32), np.uint32(0)))
+    top = key.max()
+    if top == 0:
+        return _F0, _F0, 0, 0
+    k = int(np.flatnonzero(key == top)[0])
+    i = int(idx[k])
+    return cv[k], ampl[i], int(bits[i]) & 0xFFFFFFFF, int(lanes[k])
 
 
 def _decode_word(st: MegaStatics, blo: int):
@@ -223,8 +319,10 @@ def _decode_word(st: MegaStatics, blo: int):
 def _run_stream(st: MegaStatics, finalize: bool, planes, total, thr, lim,
                 ci, cf, ev, by):
     """One stream's state machine over numpy planes [P, T] int32.
-    Writes ev [E, 8] / by [b_cap]; returns (n_ev, n_by, ci_out, cf_out)."""
+    Writes ev [E, 8] / by [b_cap]; returns (n_ev, n_by, ci_out, cf_out,
+    frame searches, candidate words read)."""
     t_scored = planes.shape[1]
+    n_search = n_words = 0
     cd, ad = planes[0].view(np.float32), planes[1].view(np.float32)
     bl = planes[2]
     cs, as_ = ((planes[3].view(np.float32), planes[4].view(np.float32))
@@ -239,6 +337,8 @@ def _run_stream(st: MegaStatics, finalize: bool, planes, total, thr, lim,
         conf_a, ampl_a = (cd, ad) if cw else (cs, as_)
         c, a, blo, fs = _find_frame(conf_a, ampl_a, bl, t_scored, pos,
                                     st.cand_c[cw], lim)
+        n_search += 1
+        n_words += len(st.cand_c[cw]) + 2
         refine = c < peak * q75
         if refine:
             peak = _F0
@@ -255,6 +355,7 @@ def _run_stream(st: MegaStatics, finalize: bool, planes, total, thr, lim,
             # fine rescan: same window, data expect, no early exit
             c2, a2, blo2, fs2 = _find_frame(cd, ad, bl, t_scored, pos,
                                             st.cand_f[cw], _INF)
+            n_words += len(st.cand_f[cw]) + 2
             if c2 > c:
                 # NB: confidence itself is not updated (minimodem.c:1383)
                 a, blo, fs = a2, blo2, fs2
@@ -298,7 +399,7 @@ def _run_stream(st: MegaStatics, finalize: bool, planes, total, thr, lim,
         ev[n_ev] = (_i32(nframes), _fbits(conf_tot), _fbits(ampl_tot),
                     _i32(carrier_ns), n_by, 0, EV_NOCARRIER, 0)
         n_ev += 1
-    return n_ev, n_by, ci_out, cf_out
+    return n_ev, n_by, ci_out, cf_out, n_search, n_words
 
 
 def mega_rx_plain(st: MegaStatics, finalize: bool, planes, totals,
@@ -306,7 +407,10 @@ def mega_rx_plain(st: MegaStatics, finalize: bool, planes, totals,
     """Plain version of K2 over numpy arrays: planes [B, P, T] int32,
     totals [B], carry [B, 8] int32 + [B, 4] float32.  Returns numpy
     (ev [B, E, 8] i32, n_ev [B], bytes [B, b_cap] u8, n_by [B],
-    carry_i_out, carry_f_out)."""
+    carry_i_out, carry_f_out).  The work of the last call, for the
+    kernel's bounds: `searches` [B] frame searches (the length of each
+    stream's chain of decisions) and `words` plane words the searches
+    read (every candidate's confidence, the winner's ampl and bits)."""
     mega_rx_plain.calls += 1
     b = planes.shape[0]
     ev = np.zeros((b, st.max_events, 8), np.int32)
@@ -316,14 +420,19 @@ def mega_rx_plain(st: MegaStatics, finalize: bool, planes, totals,
     ci_out = np.zeros((b, 8), np.int32)
     cf_out = np.zeros((b, 4), np.float32)
     thr_f, lim_f = np.float32(thr[0]), np.float32(thr[1])
+    mega_rx_plain.searches = np.zeros(b, np.int64)
+    mega_rx_plain.words = 0
     for i in range(b):
-        n_ev[i], n_by[i], ci_out[i], cf_out[i] = _run_stream(
-            st, finalize, planes[i], int(totals[i]), thr_f, lim_f,
-            carry_i[i], carry_f[i], ev[i], by[i])
+        (n_ev[i], n_by[i], ci_out[i], cf_out[i], mega_rx_plain.searches[i],
+         words) = _run_stream(st, finalize, planes[i], int(totals[i]), thr_f,
+                              lim_f, carry_i[i], carry_f[i], ev[i], by[i])
+        mega_rx_plain.words += words
     return ev, n_ev, by, n_by, ci_out, cf_out
 
 
 mega_rx_plain.calls = 0
+mega_rx_plain.searches = np.zeros(0, np.int64)
+mega_rx_plain.words = 0
 
 
 # ======================================================================
@@ -337,7 +446,8 @@ class MegaParams(ctypes.Structure):
         "batch", "n_planes", "t_scored", "expect_nsamples", "frame_nsamples",
         "overscan", "try_max0", "try_max1", "coarse_step0", "coarse_step1",
         "max_events", "b_cap", "rx_one", "finalize", "n_data_bits",
-        "data_shift", "msb_first", "sync_ok", "sync_byte", "dual")] + [
+        "data_shift", "msb_first", "sync_ok", "sync_byte", "dual",
+        "hold_all", "window", "stages", "smem_bytes")] + [
         ("conf_threshold", ctypes.c_float),
         ("conf_search_limit", ctypes.c_float),
         ("cand_c", (ctypes.c_int * K_MAX) * 2),
@@ -350,8 +460,9 @@ class MegaRx:
 
     launches = 0
 
-    def __init__(self, st: MegaStatics):
+    def __init__(self, st: MegaStatics, min_stages: int = RING_MIN_STAGES):
         self.st = st
+        self.ring = ring_geometry(st, min_stages)
 
     def __call__(self, planes: torch.Tensor, totals: torch.Tensor,
                  thr: tuple, carry_i: torch.Tensor, carry_f: torch.Tensor,
@@ -370,8 +481,16 @@ class MegaRx:
             return tuple(torch.from_numpy(a) for a in out)
         if dev.type != "cuda":
             raise ValueError(f"no megakernel for device {dev}")
-        return self._launch(planes.contiguous(),
-                            totals.to(torch.int32).contiguous(), thr,
+        planes = planes.contiguous()
+        n_planes = 5 if self.st.dual else 3
+        if (planes.dtype != torch.int32 or planes.dim() != 3
+                or planes.shape[1] != n_planes or planes.shape[2] % 4
+                or planes.data_ptr() % 16):
+            # the ring's TMA copies move 16-byte aligned runs of words
+            raise ValueError(
+                f"expected 16-byte aligned int32 planes [B, {n_planes}, T] "
+                f"with T % 4 == 0, got {tuple(planes.shape)} {planes.dtype}")
+        return self._launch(planes, totals.to(torch.int32).contiguous(), thr,
                             carry_i.to(torch.int32).contiguous(),
                             carry_f.to(torch.float32).contiguous(), finalize)
 
@@ -400,7 +519,9 @@ class MegaRx:
             finalize=int(finalize), n_data_bits=st.n_data_bits,
             data_shift=st.data_shift, msb_first=int(st.msb_first),
             sync_ok=int(st.sync_ok), sync_byte=st.sync_byte,
-            dual=int(st.dual),
+            dual=int(st.dual), hold_all=int(self.ring.hold_all),
+            window=self.ring.window, stages=self.ring.stages,
+            smem_bytes=self.ring.smem_bytes,
             conf_threshold=float(np.float32(thr[0])),
             conf_search_limit=float(np.float32(thr[1])))
         for row, (cc, ff) in enumerate(zip(st.cand_c, st.cand_f)):
@@ -445,7 +566,7 @@ class MegaReceiver:
     byte_stream) tuples, the same as the JAX compact receivers."""
 
     def __init__(self, cfg, precision: str = "auto", rx_one: bool = False,
-                 device="cpu"):
+                 device=_device.DEFAULT):
         self.cfg = cfg
         self.key = device_rx_key(cfg, precision)
         self.check_supported(self.key)
@@ -500,6 +621,7 @@ class MegaReceiver:
                          conf_threshold: float, conf_search_limit: float,
                          carry=None, finalize: bool = True,
                          in_encoding: str = None):
+        dev = _device.require(self.device)
         b, L = samples.shape
         totals = np.asarray(totals, np.int32)
         t_total = _round_up_pow2(
@@ -511,7 +633,6 @@ class MegaReceiver:
         row = t_total + halo
         x = alloc_wire((b, row), samples.dtype, in_encoding)
         x[:, :min(L, row)] = samples[:, :row]
-        dev = self.device
         ci, cf = self.carry_to_arrays(carry, b)
         out = run(torch.from_numpy(x).to(dev), torch.from_numpy(totals).to(dev),
                   (conf_threshold, conf_search_limit),

@@ -31,6 +31,7 @@ import numpy as np
 from ..codecs import bit_reverse, bit_window
 from ..config import ModemConfig, RxOptions
 from ..ops.demod import DemodScorer
+from ..utils import device as _device
 from ..utils.cfloat import (
     f32,
     f32_add,
@@ -56,7 +57,7 @@ class ScoreProvider:
 
     def __init__(self, samples: np.ndarray, cfg: ModemConfig,
                  precision: str = "auto", chunk_len: int = 1 << 17,
-                 device="cpu"):
+                 device=_device.DEFAULT):
         self.samples = np.ascontiguousarray(samples, dtype=np.float32)
         self.cfg = cfg
         self.precision = precision
@@ -139,7 +140,7 @@ class Receiver:
         codec,
         write_out: Callable[[bytes], None],
         write_err: Callable[[str], None] = lambda s: sys.stderr.write(s),
-        device="cpu",
+        device=_device.DEFAULT,
     ):
         self.cfg = cfg
         self.opts = opts.sanitize()
@@ -163,6 +164,7 @@ class Receiver:
         uint8 sample array — the device engine ships 1 byte/sample and
         expands on the device (bit-identical values); the host engines
         expand up front."""
+        _device.require(self.device)
         if engine == "auto":
             engine = "device"
         if engine == "device":

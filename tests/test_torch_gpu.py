@@ -64,6 +64,24 @@ def test_fused_kernel_equals_plain(cuda, mode):
     np.testing.assert_array_equal(k.cpu().numpy(), p.cpu().numpy())
 
 
+def test_fused_kernel_equals_plain_at_the_path_shape(cuda):
+    """K1 at the device engine's shape, one 2^21-sample Bell-202 segment
+    (512 tiles of 4096 offsets), bit for bit."""
+    from minimodem_tpu_torch.ops.device_rx import device_rx_key, geo_from_key
+    from minimodem_tpu_torch.ops.fused_score import (FusedScorer,
+                                                     score_planes_plain)
+
+    cfg, wav = _noisy("1200", 6, n_bytes=400)
+    scorer = FusedScorer(geo_from_key(device_rx_key(cfg)))
+    assert scorer.tile == 4096
+    t_total = 1 << 21
+    x = np.resize(wav, (1, t_total + scorer.geo.halo))
+    xt = torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    k = scorer(xt, t_total)
+    p = score_planes_plain(xt, scorer.geo, t_total)
+    np.testing.assert_array_equal(k.cpu().numpy(), p.cpu().numpy())
+
+
 @pytest.mark.parametrize("batch", [1, 4])
 @pytest.mark.parametrize("mode", ["1200", "same", "rtty"])
 def test_correlate_kernel_equals_plain(cuda, mode, batch):
@@ -103,36 +121,131 @@ def _cases():
         yield mode, cfg, wav, False
 
 
+def _k1_planes(cuda, cfg, streams, t_total):
+    """K1's planes on the card for streams [B] of audio (zero-padded)."""
+    from minimodem_tpu_torch.ops.device_rx import (
+        device_rx_key, geo_from_key, make_score_packer_planes)
+
+    key = device_rx_key(cfg)
+    packer, _ = make_score_packer_planes(key, t_total, "float32")
+    x = np.zeros((len(streams), t_total + geo_from_key(key).halo), np.float32)
+    for i, s in enumerate(streams):
+        n = min(len(s), x.shape[1])
+        x[i, :n] = s[:n]
+    return key, packer(torch.from_numpy(x).to(cuda))
+
+
+def _k2_equals_plain(key, planes, totals, rx_one=False, carry=None,
+                     finalize=True, min_stages=None):
+    """K2 on the card against the plain K2 on a CPU copy of the same
+    inputs: events, bytes and carry exactly.  -> (kernel's outputs, its
+    MegaRx)."""
+    from minimodem_tpu_torch.ops.device_rx import _collect
+    from minimodem_tpu_torch.ops.mega_rx import MegaRx, MegaStatics
+
+    b = planes.shape[0]
+    st = MegaStatics.build(key, planes.shape[2], rx_one)
+    mega = MegaRx(st) if min_stages is None else MegaRx(st, min_stages)
+    if carry is None:
+        carry = (torch.zeros((b, 8), dtype=torch.int32),
+                 torch.zeros((b, 4), dtype=torch.float32))
+    ci, cf = (c.cpu() for c in carry)
+    tt = torch.as_tensor(np.asarray(totals, np.int32))
+    k = mega(planes, tt.to(planes.device), (THR, LIM), ci.to(planes.device),
+             cf.to(planes.device), finalize)
+    p = mega(planes.cpu(), tt, (THR, LIM), ci, cf, finalize)
+    for a, c in zip(_collect(k[:4], b), _collect(p[:4], b)):
+        assert len(a) == len(c)
+        for u, v in zip(a, c):
+            np.testing.assert_array_equal(u, v)
+    np.testing.assert_array_equal(k[4].cpu().numpy(), p[4].numpy())
+    np.testing.assert_array_equal(k[5].cpu().numpy().view(np.int32),
+                                  p[5].numpy().view(np.int32))
+    return k, mega
+
+
 @pytest.mark.parametrize("name", ["gap", "rx_one", "1200", "same", "rtty"])
 def test_mega_kernel_equals_plain(cuda, name):
     """K2 on the card's K1 planes (a batch of 3 streams of different
-    lengths, one thread each) equals the plain K2 on a CPU copy."""
-    from minimodem_tpu_torch.ops.device_rx import (
-        _collect, _round_up_pow2, device_rx_key, geo_from_key,
-        make_score_packer_planes)
-    from minimodem_tpu_torch.ops.mega_rx import MegaRx, MegaStatics
+    lengths, one CTA each) equals the plain K2 on a CPU copy."""
+    from minimodem_tpu_torch.ops.device_rx import _round_up_pow2
 
     cfg, wav, rx_one = next(c for c in _cases() if c[0] == name)[1:]
-    key = device_rx_key(cfg)
-    totals = np.asarray([len(wav), len(wav) * 2 // 3, len(wav) // 3],
-                        np.int32)
+    totals = [len(wav), len(wav) * 2 // 3, len(wav) // 3]
     t_total = _round_up_pow2(len(wav) + cfg.nsamples_overscan + 1)
-    packer, _ = make_score_packer_planes(key, t_total, "float32")
-    x = np.zeros((3, t_total + geo_from_key(key).halo), np.float32)
-    for i, n in enumerate(totals):
-        x[i, :n] = wav[:n]
-    planes = packer(torch.from_numpy(x).to(cuda))
-    mega = MegaRx(MegaStatics.build(key, t_total, rx_one))
-    ci = torch.zeros((3, 8), dtype=torch.int32)
-    cf = torch.zeros((3, 4), dtype=torch.float32)
-    tt = torch.from_numpy(totals)
-    k = mega(planes, tt.to(cuda), (THR, LIM), ci.to(cuda), cf.to(cuda), True)
-    p = mega(planes.cpu(), tt, (THR, LIM), ci, cf, True)
-    for a, b in zip(_collect(k[:4], 3), _collect(p[:4], 3)):
-        for u, v in zip(a, b):
-            np.testing.assert_array_equal(u, v)
-    np.testing.assert_array_equal(k[4].cpu().numpy(), p[4].numpy())
-    np.testing.assert_array_equal(k[5].cpu().numpy(), p[5].numpy())
+    key, planes = _k1_planes(cuda, cfg, [wav[:n] for n in totals], t_total)
+    _k2_equals_plain(key, planes, totals, rx_one)
+
+
+@pytest.mark.parametrize("min_stages", [4, 18])
+def test_mega_kernel_160_streams(cuda, min_stages):
+    """160 Bell-202 streams of differing totals (more CTAs than SMs), with
+    the smallest ring and one of 18 stages."""
+    from minimodem_tpu_torch.ops.device_rx import _round_up_pow2
+
+    cfg, wav = _noisy("1200", 7, n_bytes=300)
+    totals = [100000 - 293 * i for i in range(160)]
+    t_total = _round_up_pow2(max(totals) + cfg.nsamples_overscan + 1)
+    streams = [np.roll(wav, -997 * i)[:n] for i, n in enumerate(totals)]
+    key, planes = _k1_planes(cuda, cfg, streams, t_total)
+    _, mega = _k2_equals_plain(key, planes, totals, min_stages=min_stages)
+    assert mega.ring.stages == min_stages and mega.ring.hold_all
+
+
+def test_mega_kernel_carried_unaligned_pos(cuda):
+    """A stream in two calls, the first ending at a pos that is not a
+    multiple of the ring's window: the second call, started from the
+    carry, equals the plain K2 from the same carry."""
+    from minimodem_tpu_torch.ops.device_rx import _round_up_pow2
+
+    cfg, wav = _noisy("1200", 8, n_bytes=200)
+    n = len(wav)
+    t_total = _round_up_pow2(n + cfg.nsamples_overscan + 1)
+    key, planes = _k1_planes(cuda, cfg, [wav], t_total)
+    for cut in range(n // 2, n // 2 + 4000, 97):
+        first, mega = _k2_equals_plain(key, planes, [cut], finalize=False)
+        if int(first[4][0, 0]) % mega.ring.window:
+            break
+    else:
+        pytest.fail("no cut left pos off the ring's window grid")
+    _k2_equals_plain(key, planes, [n], carry=(first[4], first[5]))
+
+
+def test_mega_kernel_dual_layout_confidence_ring(cuda):
+    """The dual layout (sync and data expect differ) at the widest scan
+    window K2 serves, 4.5 baud at 48 kHz: the ring holds the two
+    confidence planes only and the winner's ampl and bits come from
+    global memory.  Its planes come from the FFT correlation (K1's tiles
+    do not hold such a bit span)."""
+    from minimodem_tpu_torch.models.presets import bell_like
+    from minimodem_tpu_torch.ops.demod import (
+        correlate_fft, geometry_from_config, make_basis, score_frame_channels)
+    from minimodem_tpu_torch.ops.device_rx import _round_up_pow2, device_rx_key
+
+    pre = bell_like(4.5, 48000, do_rx_sync=True, do_tx_sync_bytes=2,
+                    sync_byte=0xAB)
+    m = _modem("1200")
+    m.preset, m.cfg = pre, pre.cfg
+    rng = np.random.default_rng(9)
+    wav = m.modulate(b"slow")
+    wav = (wav + (rng.random(wav.size, dtype=np.float32) - np.float32(0.5))
+           * np.float32(0.3)).astype(np.float32)
+    n = len(wav)
+    t_total = _round_up_pow2(n + pre.cfg.nsamples_overscan + 1)
+    geo = geometry_from_config(pre.cfg)
+    x = np.zeros((2, t_total + geo.halo), np.float32)
+    x[:, :n] = wav
+    basis = torch.from_numpy(make_basis(geo, np.float32)).to(cuda)
+    corr = correlate_fft(torch.from_numpy(x).to(cuda), basis,
+                         t_total + geo.max_begin)
+    ch = score_frame_channels(corr, geo, t_total)
+    planes = torch.stack([ch[r].view(torch.int32) for r in (
+        "conf_data", "ampl_data", "bits_lo", "conf_sync", "ampl_sync")],
+        dim=1).contiguous()
+    k, mega = _k2_equals_plain(device_rx_key(pre.cfg), planes,
+                               [n, n * 3 // 4])
+    assert mega.st.dual and not mega.ring.hold_all and mega.ring.n_held == 2
+    assert int(k[3].sum()) > 0
 
 
 def test_pipelined_cuda_equals_cpu(cuda):
@@ -151,7 +264,7 @@ def test_pipelined_cuda_equals_cpu(cuda):
     for dev in ("cpu", cuda):
         sink, errs = io.BytesIO(), []
         rx = Receiver(m.cfg, RxOptions(), get_codec("ascii8"), sink.write,
-                      errs.append)
+                      errs.append, device=dev)
         pr = PipelinedReceiver(m.cfg, segment_len=1 << 16, device=dev)
         for seg in pr.run(samples, THR, LIM):
             rx.render_events(*seg)

@@ -17,6 +17,8 @@ the TPU main path, which the port follows — agree bit for bit.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as hs
 
 from minimodem_tpu.models.modem import FskModem
 
@@ -284,3 +286,156 @@ def test_float64_geometry_names_roadmap_item():
     cfg.finalize()
     with pytest.raises(NotImplementedError, match="float64"):
         MegaReceiver(cfg)
+
+
+# ----------------------------------------------------------------------
+# the CUDA kernel's formulation, on the CPU: its warp-parallel search rule
+# and its ring geometry (the card tests hold the kernel itself)
+# ----------------------------------------------------------------------
+
+_SPECIAL = [0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, 1.5, 2.3, 3.0]
+
+
+@settings(max_examples=400, deadline=None, derandomize=True, database=None)
+@given(hs.data())
+def test_find_frame_parallel_equals_sequential(data):
+    """The ballot and max-reduction rule picks the sequential replay's
+    winner: confidences with ties, NaN, +-inf, 0 and -0; limits 0, finite
+    and inf; short tables ended by -1; reads out of range."""
+    from minimodem_tpu_torch.ops.mega_rx import _find_frame, find_frame_parallel
+
+    n = data.draw(hs.integers(1, 48), label="t_scored")
+    # ties: a few values recur often
+    value = hs.one_of(hs.sampled_from(_SPECIAL), hs.sampled_from([2.0, 4.0]),
+                      hs.floats(width=32))
+    conf = np.array(data.draw(hs.lists(value, min_size=n, max_size=n),
+                              label="conf"), np.float32)
+    ampl = np.arange(n, dtype=np.float32) + np.float32(0.5)
+    bits = (np.arange(n, dtype=np.uint64) * 2654435761 % (1 << 32)).astype(
+        np.uint32).view(np.int32)
+    cands = data.draw(hs.lists(hs.integers(0, 56), max_size=16), label="cands")
+    table = cands + [-1] * data.draw(hs.integers(0, 32 - len(cands)))
+    pos = data.draw(hs.integers(-8, n + 8), label="pos")
+    limit = np.float32(data.draw(hs.one_of(
+        hs.sampled_from([0.0, -0.0, 1.5, 2.0, 2.3, 4.0, np.inf]),
+        hs.floats(width=32, allow_nan=False)), label="limit"))
+    seq = _find_frame(conf, ampl, bits, n, pos, table, limit)
+    par = find_frame_parallel(conf, ampl, bits, n, pos, table, limit)
+    assert [np.float32(v).view(np.uint32) for v in seq[:2]] == \
+        [np.float32(v).view(np.uint32) for v in par[:2]]
+    assert tuple(seq[2:]) == tuple(par[2:])
+
+
+_NAN, _INF = float("nan"), float("inf")
+
+
+@pytest.mark.parametrize("conf,table,limit,winner", [
+    ([1.5, 4.0], [0, 1], 1.5, 0),          # cv == limit stops the search
+    ([2.0, 4.0, 4.0], [0, 1, 2], _INF, 1),  # ties: the first of the largest
+    ([4.0, 4.0, 9.0], [2, 1, 0], 3.0, 0),  # table order, not offset order
+    ([_NAN, 1.0, _NAN], [0, 2, 1], 0.5, 2),  # NaN never wins
+    ([_INF, 5.0, _INF], [1, 0, 2], _INF, 1),  # inf >= inf
+    ([-0.0, 0.0, -1.0], [0, 1, 2], 0.0, None),  # nothing > 0: no winner
+    ([3.0, 5.0], [1, -1, 0], 4.0, 0),      # -1 ends the table
+    ([3.0, 5.0], [1, 0], -_INF, 0),        # any cv > 0 reaches -inf
+])
+def test_find_frame_parallel_cases(conf, table, limit, winner):
+    from minimodem_tpu_torch.ops.mega_rx import _find_frame, find_frame_parallel
+
+    conf = np.array(conf, np.float32)
+    n = len(conf)
+    ampl = np.arange(n, dtype=np.float32) + np.float32(0.5)
+    bits = np.arange(n, dtype=np.int32) * 3 + 1
+    seq = _find_frame(conf, ampl, bits, n, 0, table, np.float32(limit))
+    par = find_frame_parallel(conf, ampl, bits, n, 0, table, np.float32(limit))
+    want = (0, 0, 0, 0) if winner is None else (
+        conf[table[winner]], ampl[table[winner]], int(bits[table[winner]]),
+        table[winner])
+    for got in (seq, par):
+        assert [np.float32(v).view(np.uint32) for v in got[:2]] == \
+            [np.float32(v).view(np.uint32) for v in want[:2]]
+        assert tuple(got[2:]) == tuple(want[2:])
+
+
+@pytest.mark.parametrize("name", ["noise", "same"])
+def test_plain_k2_with_parallel_search_matches_device_receiver(name,
+                                                               monkeypatch):
+    """The whole state machine with the warp-parallel search rule in place
+    of the sequential replay gives JAX's events (the dual layout too)."""
+    from minimodem_tpu.ops.device_rx import _round_up_pow2, geo_from_key
+    from minimodem_tpu.ops.device_rx import device_rx_key as jkey
+    from minimodem_tpu_torch.ops import mega_rx as M
+
+    monkeypatch.setattr(M, "_find_frame", M.find_frame_parallel)
+    cfg, wav, rx_one = _case(name)
+    t_total = _round_up_pow2(len(wav) + cfg.nsamples_overscan + 1)
+    x = np.zeros(t_total + geo_from_key(jkey(cfg)).halo, np.float32)
+    x[:len(wav)] = wav
+    ref, _ = _jax_device_rx(cfg, wav, rx_one)
+    got, _ = _port_k2(cfg, _jax_planes(cfg, x, t_total), len(wav), t_total,
+                      rx_one)
+    _assert_events_equal(got, ref)
+
+
+def _ring_rule(st):
+    w = max(st.try_max)
+    return w, w + max(w - 1 + st.frame_nsamples - st.overscan, w)
+
+
+@pytest.mark.parametrize("rate", [8000, 24000, 48000])
+def test_ring_geometry_covers_every_served_preset(rate):
+    """For every preset K2 serves, the ring's G and S cover a scan window
+    plus one advance, fit the CTA's shared memory, and hold every plane
+    exactly when a covering ring of every plane fits."""
+    from minimodem_tpu_torch.models.presets import PRESETS
+    from minimodem_tpu_torch.ops import mega_rx as M
+    from minimodem_tpu_torch.ops.device_rx import device_rx_key
+
+    served = 0
+    for name, make in PRESETS.items():
+        key = device_rx_key(make(sample_rate=rate).cfg)
+        if M.unsupported_reason(key) is not None:
+            continue
+        served += 1
+        st = M.MegaStatics.build(key, 1 << 16, False)
+        ring = M.ring_geometry(st)
+        _, need = _ring_rule(st)
+        n_all = 5 if st.dual else 3
+        assert ring.window * (ring.stages - 1) >= need, name
+        assert ring.stages >= M.RING_MIN_STAGES
+        assert ring.smem_bytes == M.ring_smem_bytes(ring.n_held, ring.stages)
+        assert ring.smem_bytes <= 232448, name
+        assert ring.hold_all == (
+            M.ring_smem_bytes(n_all, ring.stages) <= 232448), name
+        assert ring.n_held == (n_all if ring.hold_all else n_all - 2), name
+        assert ring.hold_all, name            # every preset fits whole
+    assert served == 9
+
+
+@pytest.mark.parametrize("baud,sync", [(30, False), (10, False), (4.5, False),
+                                       (4.5, True)])
+def test_ring_geometry_slow_bauds(baud, sync):
+    """Slow geometries K2 serves, up to its widest scan window (4.5 baud
+    at 48 kHz, ~16000 samples), in the single and the dual layout: the
+    ring holds the confidence plane(s) only, covers an advance where that
+    fits, and always holds a scan window within the shared memory."""
+    from minimodem_tpu_torch.models.presets import bell_like
+    from minimodem_tpu_torch.ops import mega_rx as M
+    from minimodem_tpu_torch.ops.device_rx import device_rx_key
+
+    kw = {"do_rx_sync": True, "sync_byte": 0xAB} if sync else {}
+    key = device_rx_key(bell_like(baud, 48000, **kw).cfg)
+    assert M.unsupported_reason(key) is None
+    st = M.MegaStatics.build(key, 1 << 16, False)
+    assert st.dual == sync
+    ring = M.ring_geometry(st)
+    w, need = _ring_rule(st)
+    n_conf = 2 if sync else 1
+    assert not ring.hold_all and ring.n_held == n_conf
+    assert ring.window * (ring.stages - 1) >= w
+    assert ring.smem_bytes <= 232448
+    covering = -(-need // ring.window) + 1
+    if M.ring_smem_bytes(n_conf, covering) <= 232448:
+        assert ring.stages == covering
+    else:
+        assert M.ring_smem_bytes(n_conf, ring.stages + 1) > 232448

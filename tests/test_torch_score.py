@@ -255,3 +255,33 @@ def test_wrapper_runs_plain_only_on_cpu():
         scorer(x.to("meta"), 4096)
     with pytest.raises(ValueError):
         scorer(x[:, :100], 4096)
+
+
+@pytest.mark.parametrize("rate", [8000, 24000, 48000])
+def test_fused_tile_geometry(rate):
+    """K1's tile for every preset it serves: a multiple of 8 (the
+    kernel's phase-major planes), a CTA within the shared memory, at
+    least 8 * max_begin where such a tile fits (a halo recompute of at
+    most 1/8), and the smallest such tile."""
+    from minimodem_tpu_torch.models.presets import PRESETS
+    from minimodem_tpu_torch.ops import fused_score as FS
+    from minimodem_tpu_torch.ops.demod import geometry_from_config
+
+    served = 0
+    for name, make in PRESETS.items():
+        geo = geometry_from_config(make(sample_rate=rate).cfg, "float32")
+        if geo.n_bits > 32:
+            continue
+        served += 1
+        tile = FS.pick_tile(geo)
+        assert tile % 8 == 0 and tile in FS._TILES, name
+        assert FS.smem_bytes(geo, tile) <= 227 * 1024, name
+        if tile >= 8 * geo.max_begin:
+            smaller = tile // 2
+            assert smaller < 8 * geo.max_begin or smaller not in FS._TILES
+        else:
+            assert tile == FS._TILES[0] or \
+                FS.smem_bytes(geo, 2 * tile) > 227 * 1024, name
+    assert served == 9
+    bell = geometry_from_config(PRESETS["1200"](sample_rate=48000).cfg)
+    assert FS.pick_tile(bell) == 4096

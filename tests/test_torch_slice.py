@@ -140,7 +140,7 @@ def test_multi_segment_matches_jax_pipelined_receiver():
     segs = list(tpr.run(samples, 1.5, 2.3))
     assert len(segs) >= 3
     rx = Receiver(m.cfg, RxOptions(), get_codec("ascii8"), sink_t.write,
-                  errs_t.append)
+                  errs_t.append, device="cpu")
     for seg in segs:
         rx.render_events(*seg)
     assert sink_t.getvalue() == sink_j.getvalue() == p1 + p2
@@ -193,6 +193,57 @@ def test_device_cuda_without_a_card_exits_1():
                                       "--device", "cuda"])
     assert code == 1 and out == b""
     assert err.startswith("E: ") and err.count("\n") == 1
+
+
+def _first_use(entry):
+    """Build the port's entry point with its default device (no card is
+    touched) -> a call that uses it."""
+    from minimodem_tpu_torch.codecs import get_codec
+    from minimodem_tpu_torch.config import RxOptions
+    from minimodem_tpu_torch.models.modem import FskModem as TorchModem
+    from minimodem_tpu_torch.ops.demod import DemodScorer
+    from minimodem_tpu_torch.ops.device_rx import (DeviceReceiver,
+                                                   PipelinedReceiver)
+    from minimodem_tpu_torch.ops.mega_rx import MegaReceiver
+    from minimodem_tpu_torch.rx.engine import Receiver, ScoreProvider
+
+    m = TorchModem("1200")
+    wav = m.modulate(b"x")
+    if entry == "FskModem":
+        return m, lambda: m.demodulate(wav)
+    if entry == "Receiver":
+        rx = Receiver(m.cfg, RxOptions(), get_codec("ascii8"), lambda b: None,
+                      lambda s: None)
+        return rx, lambda: rx.run(wav, engine="host")
+    if entry == "ScoreProvider":
+        sp = ScoreProvider(wav, m.cfg)
+        return sp, lambda: sp.query(0, False)
+    if entry == "DemodScorer":
+        sc = DemodScorer(m.cfg)
+        return sc, lambda: sc.score(wav)
+    if entry in ("DeviceReceiver", "MegaReceiver"):
+        cls = DeviceReceiver if entry == "DeviceReceiver" else MegaReceiver
+        r = cls(m.cfg)
+        return r, lambda: r.run_events_batch(wav[None], [len(wav)], 1.5, 2.3)
+    pr = PipelinedReceiver(m.cfg)
+    return pr, lambda: next(pr.run(wav, 1.5, 2.3))
+
+
+@pytest.mark.parametrize("entry", [
+    "FskModem", "Receiver", "ScoreProvider", "DemodScorer", "DeviceReceiver",
+    "PipelinedReceiver", "MegaReceiver"])
+def test_entry_points_default_to_the_card(entry):
+    """Every public entry point defaults to device="cuda", as the JAX
+    package runs on its default accelerator; without a card the first use
+    raises naming device="cpu", and nothing falls back to the CPU."""
+    import inspect
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    obj, use = _first_use(entry)
+    assert inspect.signature(type(obj)).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        use()
 
 
 @pytest.mark.parametrize("flags,item", [
