@@ -122,22 +122,6 @@ def load() -> ctypes.CDLL:
         return lib
 
 
-def ptxas_report(names) -> dict:
-    """What ptxas says of each named source (registers, shared memory,
-    spills per kernel): one `nvcc -Xptxas -v -c` per source, all started
-    together, into a throw-away object.  -> {name: [lines]}."""
-    nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        procs = {n: subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-             os.path.join(tmp, n + ".o"), str(SRC_DIR / (n + ".cu"))],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for n in names}
-        return {n: [ln.strip() for ln in p.communicate()[0].splitlines()
-                    if ln.strip()] for n, p in procs.items()}
-
-
 def check(err: int, what: str) -> None:
     """Raise when a C entry reported a CUDA error (a refused launch never
     runs, and a later synchronize would not report it)."""

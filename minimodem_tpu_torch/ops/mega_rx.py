@@ -180,7 +180,7 @@ class MegaStatics:
 # ======================================================================
 
 RING_WINDOW = 1024            # G, samples per window (csrc/mega_rx.cu kG)
-RING_MIN_STAGES = 4
+RING_MIN_STAGES = 4          # the least S, for short scan windows
 SMEM_MAX = 232448             # dynamic shared memory a CTA may use on sm_90
 
 
@@ -200,7 +200,7 @@ class Ring:
     smem_bytes: int
 
 
-def ring_geometry(st: MegaStatics, min_stages: int = RING_MIN_STAGES) -> Ring:
+def ring_geometry(st: MegaStatics) -> Ring:
     """G and S of K2's ring, and the planes it holds, from the geometry.
 
     A search at pos reads [pos, pos + w_scan); the next frame starts at
@@ -221,7 +221,7 @@ def ring_geometry(st: MegaStatics, min_stages: int = RING_MIN_STAGES) -> Ring:
     w_scan = max(st.try_max)
     adv = max(w_scan - 1 + st.frame_nsamples - st.overscan, w_scan)
     g = RING_WINDOW
-    stages = max(-(-(w_scan + adv) // g) + 1, min_stages)
+    stages = max(-(-(w_scan + adv) // g) + 1, RING_MIN_STAGES)
     for n_held in (n_all, n_conf):
         if ring_smem_bytes(n_held, stages) <= SMEM_MAX:
             return Ring(g, stages, n_held == n_all, n_held,
@@ -460,9 +460,9 @@ class MegaRx:
 
     launches = 0
 
-    def __init__(self, st: MegaStatics, min_stages: int = RING_MIN_STAGES):
+    def __init__(self, st: MegaStatics):
         self.st = st
-        self.ring = ring_geometry(st, min_stages)
+        self.ring = ring_geometry(st)
 
     def __call__(self, planes: torch.Tensor, totals: torch.Tensor,
                  thr: tuple, carry_i: torch.Tensor, carry_f: torch.Tensor,

@@ -136,7 +136,7 @@ def _k1_planes(cuda, cfg, streams, t_total):
 
 
 def _k2_equals_plain(key, planes, totals, rx_one=False, carry=None,
-                     finalize=True, min_stages=None):
+                     finalize=True):
     """K2 on the card against the plain K2 on a CPU copy of the same
     inputs: events, bytes and carry exactly.  -> (kernel's outputs, its
     MegaRx)."""
@@ -145,7 +145,7 @@ def _k2_equals_plain(key, planes, totals, rx_one=False, carry=None,
 
     b = planes.shape[0]
     st = MegaStatics.build(key, planes.shape[2], rx_one)
-    mega = MegaRx(st) if min_stages is None else MegaRx(st, min_stages)
+    mega = MegaRx(st)
     if carry is None:
         carry = (torch.zeros((b, 8), dtype=torch.int32),
                  torch.zeros((b, 4), dtype=torch.float32))
@@ -178,17 +178,20 @@ def test_mega_kernel_equals_plain(cuda, name):
 
 
 @pytest.mark.parametrize("min_stages", [4, 18])
-def test_mega_kernel_160_streams(cuda, min_stages):
+def test_mega_kernel_160_streams(cuda, monkeypatch, min_stages):
     """160 Bell-202 streams of differing totals (more CTAs than SMs), with
     the smallest ring and one of 18 stages."""
+    from minimodem_tpu_torch.ops import mega_rx
     from minimodem_tpu_torch.ops.device_rx import _round_up_pow2
+
+    monkeypatch.setattr(mega_rx, "RING_MIN_STAGES", min_stages)
 
     cfg, wav = _noisy("1200", 7, n_bytes=300)
     totals = [100000 - 293 * i for i in range(160)]
     t_total = _round_up_pow2(max(totals) + cfg.nsamples_overscan + 1)
     streams = [np.roll(wav, -997 * i)[:n] for i, n in enumerate(totals)]
     key, planes = _k1_planes(cuda, cfg, streams, t_total)
-    _, mega = _k2_equals_plain(key, planes, totals, min_stages=min_stages)
+    _, mega = _k2_equals_plain(key, planes, totals)
     assert mega.ring.stages == min_stages and mega.ring.hold_all
 
 
