@@ -28,7 +28,8 @@ one line each; any failure exits non-zero:
      at the host engines' shapes from the same audio (plus noise): one
      131072-sample chunk with its halo (the K3a form) and all of the
      stream's chunks as overlapping rows at a row stride (the K3b form),
-     bit for bit;
+     then rows at an odd stride (most start off the 16-byte grid) and
+     rtty's 1056-tap filter, bit for bit;
   7. the host engines end to end on the same file: `--engine host` and
      `--engine host-native`, in process (K3 launch counts, plain calls 0)
      and as --device cuda / --device cpu subprocesses: stdout byte-exact,
@@ -249,29 +250,45 @@ def host_split(wav: str, device) -> str:
             f"{1e3 * (t2 - t1):.2f} ms")
 
 
-def k3_check(audio, dev) -> dict:
+def k3_check(audio, dev):
     """K3 against its plain version at the host engines' shapes: the
     stream (plus uniform noise of amplitude 0.3) in chunk rows of
     chunk_len + halo samples at stride chunk_len, as
-    DemodScorer.score_chunks hands them over.  -> per form: shapes,
-    bit-different words, max_abs_err, kernel and plain ms."""
+    DemodScorer.score_chunks hands them over.  -> (per form: shapes,
+    tile, bit-different words, max_abs_err, kernel and plain ms; rows of
+    the further exactness checks: 21 rows one sample off the chunk grid at
+    an odd stride, so most start off the 16-byte grid, and rtty's nb 1056
+    at the host chunk length)."""
     import numpy as np
     import torch
     from minimodem_tpu_torch.models.modem import FskModem
-    from minimodem_tpu_torch.ops.correlate import Correlator, correlate_plain
+    from minimodem_tpu_torch.ops.correlate import (
+        Correlator, correlate_plain, pick_tile)
     from minimodem_tpu_torch.ops.demod import DemodScorer, make_basis
 
-    sc = DemodScorer(FskModem("1200").cfg, device=dev)
-    geo, t_len = sc.geo, sc.chunk_len
-    s_len = t_len + geo.max_begin
-    n_chunks = -(-len(audio) // t_len)
-    flat = np.zeros(n_chunks * t_len + geo.halo, np.float32)
-    flat[:len(audio)] = audio
     rng = np.random.default_rng(SEED + 3)
-    flat += (rng.random(flat.size, dtype=np.float32) - np.float32(0.5)) \
-        * np.float32(0.6)
-    rows = torch.from_numpy(flat).to(dev).unfold(0, t_len + geo.halo, t_len)
-    corr = Correlator(make_basis(geo, np.float32))
+
+    def chunk_rows(samples, sc, offset=0, step=None):
+        """The stream, zero-padded and noisy, in overlapping chunk rows
+        of chunk_len + halo samples (-> rows, s_len, the Correlator)."""
+        geo, t_len = sc.geo, sc.chunk_len
+        n_chunks = -(-len(samples) // t_len)
+        flat = np.zeros(n_chunks * t_len + geo.halo, np.float32)
+        flat[:len(samples)] = samples
+        flat += (rng.random(flat.size, dtype=np.float32) - np.float32(0.5)) \
+            * np.float32(0.6)
+        s_len = t_len + geo.max_begin
+        rows = torch.from_numpy(flat).to(dev)[offset:].unfold(
+            0, t_len + geo.halo, step or t_len)
+        return rows, s_len, Correlator(make_basis(geo, np.float32))
+
+    def words(k, p):
+        return int(np.count_nonzero(k.cpu().numpy().view(np.uint32)
+                                    != p.cpu().numpy().view(np.uint32)))
+
+    sc = DemodScorer(FskModem("1200").cfg, device=dev)
+    geo = sc.geo
+    rows, s_len, corr = chunk_rows(audio, sc)
     basis = corr.basis(dev)
     weight = basis[:, None]                       # [4, 1, nb]
     out = {}
@@ -287,14 +304,15 @@ def k3_check(audio, dev) -> dict:
 
         c = lib()
         torch.cuda.synchronize()
-        kn, pn = k.cpu().numpy(), p.cpu().numpy()
+        pn = p.cpu().numpy()
         b, n_out = x.shape[0], 4 * s_len
         out[name] = {
             "shape": f"{list(x.shape)} (row stride {x.stride(0)}) -> "
-                     f"{list(kn.shape)}",
-            "words": int(np.count_nonzero(kn.view(np.uint32)
-                                          != pn.view(np.uint32))),
-            "max_abs_err": float(np.abs(kn.astype(np.float64) - pn).max()),
+                     f"{list(k.shape)}",
+            "tile": pick_tile(geo.nb, s_len, b),
+            "words": words(k, p),
+            "max_abs_err": float(np.abs(k.cpu().numpy().astype(np.float64)
+                                        - pn).max()),
             "conv1d_err": float(np.abs(c.cpu().numpy().astype(np.float64)
                                        - pn).max()),
             "ms": cuda_ms(lambda: corr(x, s_len), 20),
@@ -303,12 +321,29 @@ def k3_check(audio, dev) -> dict:
             "plain_ms": cuda_ms(lambda: correlate_plain(x, basis, s_len), 3),
             "library_ms": cuda_ms(lib, 20),
             "library_device_ms": device_ms_per_call(lib, 20),
-            # each input row read once, each output written once; 4 * nb
-            # FMAs (2 FLOP each) per output offset and stream
-            "bytes": 4 * b * (x.shape[1] + n_out),
+            # each input sample read once (the overlapping rows share
+            # theirs), each output written once; 4 * nb FMAs (2 FLOP
+            # each) per output offset and stream
+            "bytes": 4 * ((b - 1) * x.stride(0) + s_len + geo.nb - 1
+                          + b * n_out),
             "flop": 2 * geo.nb * b * n_out,
         }
-    return out
+
+    checks = []
+    odd, _, _ = chunk_rows(audio, sc, offset=1, step=sc.chunk_len + 1)
+    rtty = FskModem("rtty", device="cpu")
+    rwav = rtty.modulate(b"RYRY THE QUICK BROWN FOX 73 " * 40)
+    rsc = DemodScorer(rtty.cfg, device=dev)
+    rrows, r_len, rcorr = chunk_rows(np.resize(rwav, 4 * rsc.chunk_len), rsc)
+    for name, c, x, n in (("unaligned rows", corr, odd, s_len),
+                          (f"rtty nb {rsc.geo.nb}", rcorr, rrows, r_len)):
+        k = c(x, n)
+        p = correlate_plain(x, c.basis(dev), n)
+        checks.append({"name": name, "words": words(k, p),
+                       "tile": pick_tile(c.nb, n, x.shape[0]),
+                       "shape": f"{list(x.shape)} (row stride "
+                                f"{x.stride(0)}) -> {list(k.shape)}"})
+    return out, checks
 
 
 def k2_compare(mega, planes, totals, thr, ci, cf, finalize):
@@ -803,12 +838,18 @@ def main() -> int:
             fail(f"end-to-end mismatch: rc {rc_c}/{rc_p}\n{err_c}\n{err_p}")
 
         # ---- 6-9. K3 and the host engines ----
-        k3 = k3_check(audio, dev)
+        k3, k3_more = k3_check(audio, dev)
         for name, r in k3.items():
-            phase(f"K3 {name} vs plain at {r['shape']}: bit-different "
-                  f"words {r['words']}, max_abs_err {r['max_abs_err']}")
+            phase(f"K3 {name} vs plain at {r['shape']} (tile {r['tile']}): "
+                  f"bit-different words {r['words']}, max_abs_err "
+                  f"{r['max_abs_err']}")
             if r["words"]:
                 fail(f"K3 {name} disagrees with its plain version")
+        for r in k3_more:
+            phase(f"K3 {r['name']} vs plain at {r['shape']} (tile "
+                  f"{r['tile']}): bit-different words {r['words']}")
+            if r["words"]:
+                fail(f"K3 {r['name']} disagrees with its plain version")
         host = host_engines(wav, text, err_cuda)
         host_split_line = host_engine_split(wav, dev)
         perfect_check(tmp)
@@ -844,7 +885,8 @@ def main() -> int:
     # ---- 10. K3 and host-engine timings ----
     for name, r in k3.items():
         r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flop"])
-        phase(f"time K3 {name} {r['shape']}: kernel {r['ms']:.4f} ms per "
+        phase(f"time K3 {name} {r['shape']} (tile {r['tile']}): kernel "
+              f"{r['ms']:.4f} ms per "
               f"wrapper call (CUDA events), {fmt_ms(r['kernel_ms'])} device "
               f"time of the kernel alone (torch.profiler), plain "
               f"{r['plain_ms']:.4f} ms; library F.conv1d (TF32 off) "

@@ -14,91 +14,122 @@
 // x: rows of >= s_len + nb - 1 float32 samples at a row stride (so
 // overlapping chunk windows of one padded stream, x.unfold(0, L, step),
 // need no copy); basis: [4, nb] float32; out: [B, 4, s_len] float32,
-// row-major (the JAX layout per stream).
-//
-// One CTA per (tile of kTile offsets, stream): the tile's kTile + nb - 1
-// samples and the basis are staged in shared memory, then each thread
-// scores offsets with four FP32 accumulators on the CUDA cores (no tensor
-// cores, no TF32) as a chain of __fmaf_rn in ascending j.  That is the
-// chain K1's stage 1 computes (fused_score.cu), the chain XLA compiles the
-// JAX package's _correlate_direct into on the CPU, and the plain version's
-// (ops/demod.py correlate, an exact FMA emulation): the result matches it
-// bit for bit.  The TPU kernel's MAX_NB VMEM gate, banded W and 1024-
-// aligned flat layout are not carried over; nb <= 4096 is served (beyond,
+// row-major (the JAX layout per stream).  nb <= 4096 is served (beyond,
 // the scorer takes the FFT route, as the JAX package does).
 //
-// Bound: for Bell-202 (nb = 40) an offset costs 4 * 40 FMAs = 320 FLOP
-// against 20 bytes of device memory (4 read, 16 written), ~16 FLOP/B,
-// near the H100's FP32-to-HBM balance point (67 TFLOP/s / 3.35 TB/s =
-// 20 FLOP/B), so neither bound is far.  Basis reads are warp broadcasts and
-// sample reads consecutive across lanes: shared memory is conflict-free,
-// and the four output rows are written coalesced.
+// One CTA per (tile of `tile` <= 2048 offsets, stream), one thread per 8
+// offsets, the tile from ops/correlate.py pick_tile:
+//   1. the tile's tile + nb - 1 samples into shared memory by a 1-D TMA
+//      bulk copy where the row start is 16-byte aligned (by plain loads
+//      where it is not: an odd row stride), the basis as [nb8] float4;
+//   2. each thread scores 8 consecutive offsets with the register-blocked
+//      correlation K1 uses (correlate.cuh): the ascending-j __fmaf_rn
+//      chain, bit-identical with the plain version (ops/demod.py
+//      correlate) and through it with the JAX package's _correlate_direct
+//      on the CPU;
+//   3. it stores them as two 16-byte streaming stores (__stcs: the 46 MB
+//      of K3b's output pass through L2 evict-first; faster than default
+//      stores, and the channel math that reads them is no slower) per
+//      output plane, so a warp writes 1 KB of a plane contiguously
+//      (scalar stores where s_len % 4 != 0 or at the ragged end of the
+//      row).
 //
-// A later PR would block several offsets per thread in registers (one
-// basis load feeding several FMAs), vectorise the stores, or serve the
-// host engine from K1 directly so the correlation never reaches memory.
+// Bound: an offset costs 4 * nb FMAs against 16 bytes of output and ~4 of
+// input.  Bell-202 (nb = 40) at the host engines' K3b shape, 22 chunk rows
+// of 131472 offsets: 463 M FMAs, 14 us at the FP32 peak, against 58 MB,
+// 17 us at the HBM rate, so both bounds meet.  The first port gave a
+// thread one offset and read 1 audio and 4 basis words from shared memory
+// for 4 FMAs: shared-memory issue bound at ~4.5x the bound.  The register
+// blocking gives ~16 FMAs per shared-memory load; the tile rule keeps the
+// halo (nb - 1 samples staged twice) under 1/8 of a tile up to the CTA's
+// 2048 offsets where the grid still fills the card, and otherwise gives
+// the SMs their CTAs first: the halo costs only its staging, no offset is
+// computed twice, and CTAs of more offsets (fewer resident warps next to
+// a large basis) ran slower.
 
 #include <cuda_runtime.h>
+#include <cstdint>
+
+#include "correlate.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 1024;     // offsets per CTA
+using corr::kR;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kMaxThreads = 256;
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+    __stcs(reinterpret_cast<float4*>(p), v);
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
 correlate_kernel(const float* __restrict__ x, long long x_stride, int s_len,
-                 const float* __restrict__ basis, int nb,
+                 const float* __restrict__ basis, int nb, int tile,
                  float* __restrict__ out) {
-    extern __shared__ float smem[];
+    extern __shared__ __align__(16) float smem[];
+    __shared__ uint64_t bar;
+    const int tid = threadIdx.x;
+    const int nthreads = blockDim.x;
     const int b = blockIdx.y;
-    const int s0 = blockIdx.x * kTile;
-    const int n_s = min(kTile, s_len - s0);      // offsets this CTA scores
-    const int x_cnt = n_s + nb - 1;
+    const int s0 = blockIdx.x * tile;
+    const int n_s = min(tile, s_len - s0);        // offsets this CTA scores
+    const int x_cnt = n_s + nb - 1;               // samples they read
+    const int nb8 = (nb + 7) & ~7;
 
-    float* xs = smem;                            // [kTile + nb - 1]
-    float* bs = xs + kTile + nb - 1;             // [4 * nb]
+    float4* bs = reinterpret_cast<float4*>(smem);     // [nb8] basis taps
+    float* xs = smem + 4 * nb8;                       // [tile + nb8] audio
 
     const float* xrow = x + (long long)b * x_stride + s0;
-    for (int i = threadIdx.x; i < x_cnt; i += blockDim.x) xs[i] = xrow[i];
-    for (int i = threadIdx.x; i < 4 * nb; i += blockDim.x) bs[i] = basis[i];
+    const bool tma = corr::stage_audio(xs, xrow, x_cnt, &bar, tid, nthreads);
+    corr::stage_basis(bs, basis, nb, tid, nthreads);
     __syncthreads();
+    if (tma) sm90::mbar_wait(&bar, 0);
 
     const long long plane = (long long)s_len;
     float* orow = out + (long long)b * 4 * plane + s0;
-    for (int i = threadIdx.x; i < n_s; i += blockDim.x) {
-        float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, c3 = 0.0f;
-        const float* xp = xs + i;
-        for (int j = 0; j < nb; ++j) {
-            const float v = xp[j];
-            c0 = __fmaf_rn(bs[j], v, c0);
-            c1 = __fmaf_rn(bs[nb + j], v, c1);
-            c2 = __fmaf_rn(bs[2 * nb + j], v, c2);
-            c3 = __fmaf_rn(bs[3 * nb + j], v, c3);
+    const bool vec_ok = (s_len & 3) == 0 &&
+                        (reinterpret_cast<uintptr_t>(orow) & 15u) == 0u;
+    const int i0 = tid * kR;                      // this thread's offsets
+    if (i0 >= n_s) return;
+    float acc[kR][4];
+    corr::correlate8(acc, xs + i0, bs, nb);
+    if (vec_ok && i0 + kR <= n_s) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            float* o = orow + c * plane + i0;
+            store4(o, make_float4(acc[0][c], acc[1][c], acc[2][c], acc[3][c]));
+            store4(o + 4,
+                   make_float4(acc[4][c], acc[5][c], acc[6][c], acc[7][c]));
         }
-        orow[i] = c0;
-        orow[plane + i] = c1;
-        orow[2 * plane + i] = c2;
-        orow[3 * plane + i] = c3;
+    } else {
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+            if (i0 + r >= n_s) break;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) orow[c * plane + i0 + r] = acc[r][c];
+        }
     }
 }
 
 }  // namespace
 
 extern "C" int mm_correlate(const void* x, long long x_stride, int batch,
-                            int s_len, const void* basis, int nb, void* out,
-                            void* stream) {
-    const int smem_bytes =
-        (int)sizeof(float) * (kTile + nb - 1 + 4 * nb);
+                            int s_len, const void* basis, int nb, int tile,
+                            int smem_bytes, void* out, void* stream) {
+    // one thread per kR offsets; the batch on the grid's y axis
+    if (tile < kR || tile % kR != 0 || tile > kR * kMaxThreads || nb < 1 ||
+        batch > 65535)
+        return (int)cudaErrorInvalidValue;
     if (smem_bytes > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             correlate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             smem_bytes);
         if (e != cudaSuccess) return (int)e;
     }
-    dim3 grid((s_len + kTile - 1) / kTile, batch);
-    correlate_kernel<<<grid, kThreads, smem_bytes,
+    dim3 grid((s_len + tile - 1) / tile, batch);
+    correlate_kernel<<<grid, tile / kR, smem_bytes,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), x_stride, s_len,
-        static_cast<const float*>(basis), nb, static_cast<float*>(out));
+        static_cast<const float*>(basis), nb, tile, static_cast<float*>(out));
     return (int)cudaGetLastError();
 }

@@ -12,13 +12,9 @@
 //   1. one thread stages the tile's audio plus its halo (max_begin + nb
 //      samples) into shared memory with a 1-D TMA bulk copy; the others
 //      stage the basis interleaved as [nb][4] (one float4 per tap);
-//   2. correlate, register-blocked: each thread scores kR = 8 consecutive
-//      sample offsets from a sliding register window of the audio, so one
-//      16-byte broadcast of the basis feeds 32 FMAs and two 16-byte loads
-//      of audio feed eight taps.  Each of the four sums is still a chain
-//      of __fmaf_rn in ascending j — the chain XLA compiles the JAX
-//      package's _correlate_direct into, and the plain version's
-//      (ops/demod.py correlate, an exact FMA emulation) — so the planes
+//   2. correlate, register-blocked (correlate.cuh, shared with K3): each
+//      thread scores kR = 8 consecutive sample offsets, each sum the
+//      ascending-j __fmaf_rn chain of the plain version, so the planes
 //      match it bit for bit;
 //   3. band magnitudes sqrtf(c*c + s*s) * scal (pallas_score.py:228-231),
 //      the strict bit mark > space, the signed signal plane ss (the sign
@@ -52,35 +48,14 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "sm90.cuh"
+#include "correlate.cuh"
 
 namespace {
 
-using namespace sm90;
+using corr::kR;
 
 constexpr int kThreads = 256;
-constexpr int kR = 8;                         // stage-1 offsets per thread
 constexpr float kFltEpsilon = 1.1920928955078125e-07f;
-
-__device__ __forceinline__ void load8(float* v, const float* p) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// one tap j for kR consecutive offsets: v[r] = x[i0 + r + j], w the
-// four basis values at j; each sum is the ascending-j chain
-__device__ __forceinline__ void taps(float (*acc)[4], const float* v,
-                                     float4 w) {
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-        acc[r][0] = __fmaf_rn(w.x, v[r], acc[r][0]);
-        acc[r][1] = __fmaf_rn(w.y, v[r], acc[r][1]);
-        acc[r][2] = __fmaf_rn(w.z, v[r], acc[r][2]);
-        acc[r][3] = __fmaf_rn(w.w, v[r], acc[r][3]);
-    }
-}
 
 // band magnitudes -> (signed signal, gated noise) of one offset
 __device__ __forceinline__ void magnitudes(const float* c, float scal,
@@ -123,23 +98,11 @@ fused_score_kernel(const float* __restrict__ x, long long x_stride,
     float* ng = ss + span8;                           // [span8] noise
     int4* offq = reinterpret_cast<int4*>(ng + span8); // [n_bits]
 
-    // ---- stage 0: the audio by TMA (its 16-byte aligned bulk), the rest
-    // of the audio, the basis and the bit offsets by plain loads ----
+    // ---- stage 0: the audio (by TMA where aligned), the basis and the
+    // bit offsets ----
     const float* xrow = x + (long long)b * x_stride + t0;
-    const bool tma = (reinterpret_cast<uintptr_t>(xrow) & 15u) == 0u &&
-                     x_cnt >= 4;
-    const int bulk = tma ? (x_cnt & ~3) : 0;
-    if (tid == 0 && tma) {
-        mbar_init(&bar, 1);
-        mbar_init_fence();
-        mbar_arrive_expect_tx(&bar, 4u * bulk);
-        tma_load_1d(xs, xrow, 4u * bulk, &bar);
-    }
-    for (int i = bulk + tid; i < x_cnt; i += kThreads) xs[i] = xrow[i];
-    for (int j = tid; j < nb8; j += kThreads)
-        bs[j] = j < nb ? make_float4(basis[j], basis[nb + j],
-                                     basis[2 * nb + j], basis[3 * nb + j])
-                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const bool tma = corr::stage_audio(xs, xrow, x_cnt, &bar, tid, kThreads);
+    corr::stage_basis(bs, basis, nb, tid, kThreads);
     // tap k of offset 4u + q sits at offq[k].q + u in the phase-major planes
     for (int k = tid; k < n_bits; k += kThreads) {
         const int bk = bit_begin[k];
@@ -149,32 +112,14 @@ fused_score_kernel(const float* __restrict__ x, long long x_stride,
                             ((bk + 3) & 3) * ph + ((bk + 3) >> 2));
     }
     __syncthreads();
-    if (tma) mbar_wait(&bar, 0);
+    if (tma) sm90::mbar_wait(&bar, 0);
 
     // ---- stage 1: correlation -> magnitudes -> ss / ng planes ----
     const int n_task = (s_cnt + kR - 1) / kR;
     for (int task = tid; task < n_task; task += kThreads) {
         const int i0 = task * kR;
         float acc[kR][4];
-#pragma unroll
-        for (int r = 0; r < kR; ++r)
-            acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.0f;
-        float v[2 * kR];          // v[q] = xs[i0 + j + q], q < 16
-        load8(v, xs + i0);
-        int j = 0;
-        for (; j + 8 <= nb; j += 8) {             // whole blocks of 8 taps
-            load8(v + 8, xs + i0 + j + 8);
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj) taps(acc, v + jj, bs[j + jj]);
-#pragma unroll
-            for (int q = 0; q < 8; ++q) v[q] = v[q + 8];
-        }
-        if (j < nb) {                             // the last nb % 8 taps
-            load8(v + 8, xs + i0 + j + 8);
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj)
-                if (j + jj < nb) taps(acc, v + jj, bs[j + jj]);
-        }
+        corr::correlate8(acc, xs + i0, bs, nb);
         // offsets i0 + q and i0 + 4 + q share phase q: two adjacent words
 #pragma unroll
         for (int q = 0; q < 4; ++q) {

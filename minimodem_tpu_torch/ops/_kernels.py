@@ -14,7 +14,8 @@ together,
 
 and the objects are linked with `nvcc -shared` into
 minimodem_tpu_torch/build/, keyed by a hash of the sources, the shared
-header sm90.cuh (mbarriers, 1-D TMA) and the flags, and loaded with
+headers (sm90.cuh: mbarriers, 1-D TMA; correlate.cuh: the
+register-blocked correlation of K1 and K3) and the flags, and loaded with
 ctypes.  There is no --use_fast_math: the scorer
 relies on IEEE x/0 = inf, 0/0 = nan and correctly rounded sqrtf and
 division, and -fmad=false keeps every multiply-add two rounded ops, as in
@@ -51,7 +52,7 @@ _SIGNATURES = {
     "mm_fused_score": [_P, _LL, _I, _I, _P, _I, _P, _I, _I, _F, _U, _U, _U,
                        _U, _I, _I, _I, _P, _P],
     "mm_mega_rx": [_P] * 12,
-    "mm_correlate": [_P, _LL, _I, _I, _P, _I, _P, _P],
+    "mm_correlate": [_P, _LL, _I, _I, _P, _I, _I, _I, _P, _P],
 }
 
 

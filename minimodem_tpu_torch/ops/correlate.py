@@ -27,6 +27,47 @@ import torch
 from .demod import _DIRECT_CONV_MAX_NB as MAX_NB  # longer: the FFT route
 from .demod import correlate
 
+TILE_MIN = 256           # one warp, 8 offsets a thread (csrc/correlate.cu)
+TILE_MAX = 2048          # a CTA of 256 threads
+SMS = 132                # the H100's streaming multiprocessors
+# a tile of at least this many times nb - 1 stages at most 1/8 of its
+# samples twice (the halo it shares with the next tile)
+HALO_RATIO = 8
+# the least average share of the SMs a grid's rounds of SMS CTAs may keep
+# busy
+ROUND_FILL = 0.8
+
+
+def smem_bytes(nb: int, tile: int) -> int:
+    """Shared memory of K3's CTA (csrc/correlate.cu): the basis as [nb8]
+    float4 and the audio [tile + nb8], nb8 = nb rounded up to 8."""
+    nb8 = -(-nb // 8) * 8
+    return 16 * nb8 + 4 * (tile + nb8)
+
+
+def fills_the_card(ctas: int) -> bool:
+    """Whether a grid of equal CTAs keeps the SMs busy: every SM gets one,
+    and its ceil(ctas / SMS) rounds are on average ROUND_FILL full."""
+    return ctas >= SMS and ctas >= ROUND_FILL * SMS * -(-ctas // SMS)
+
+
+@functools.lru_cache(maxsize=256)
+def pick_tile(nb: int, s_len: int, batch: int) -> int:
+    """Offsets per CTA: the smallest power of two from TILE_MIN that is
+    at least HALO_RATIO * (nb - 1), at most TILE_MAX, halved while its
+    grid does not fill the card.  The halo costs only its staging (no
+    offset is computed twice), so the SMs come first, and past nb = 257
+    a filter's 4 * nb FMAs per offset dwarf the staging of its halo,
+    while CTAs of more than TILE_MAX offsets beside a large basis leave
+    an SM too few warps (they ran slower on the card).  Bell-202 (nb 40)
+    at the host chunk, s_len 131472: 512 offsets, 257 CTAs at B = 1."""
+    tile = TILE_MIN
+    while tile < min(HALO_RATIO * (nb - 1), TILE_MAX):
+        tile *= 2
+    while tile > TILE_MIN and not fills_the_card(batch * -(-s_len // tile)):
+        tile //= 2
+    return tile
+
 
 def correlate_plain(x: torch.Tensor, basis: torch.Tensor,
                     s_len: int) -> torch.Tensor:
@@ -55,6 +96,7 @@ class Correlator:
         self.nb = basis.shape[1]
         self._basis = torch.from_numpy(basis)
         self._on_device = {}
+        self._fn = None              # the kernel's C entry, once loaded
 
     def basis(self, device) -> torch.Tensor:
         key = str(device)
@@ -76,41 +118,32 @@ class Correlator:
             raise ValueError(f"audio rows of {x.shape[1]} samples are "
                              f"shorter than s_len + nb - 1 = "
                              f"{s_len + self.nb - 1}")
-        if x.device.type == "cpu":
-            return correlate_plain(x, self.basis(x.device), s_len)
-        if x.device.type != "cuda":
-            raise ValueError(f"no correlation kernel for device {x.device}")
-        return self._launch(x, s_len)
+        device = x.device
+        if device.type == "cpu":
+            return correlate_plain(x, self.basis(device), s_len)
+        if device.type != "cuda":
+            raise ValueError(f"no correlation kernel for device {device}")
+        return self._launch(x, s_len, device)
 
-    def _launch(self, x: torch.Tensor, s_len: int) -> torch.Tensor:
+    def _launch(self, x: torch.Tensor, s_len: int, device) -> torch.Tensor:
         from . import _kernels
 
         batch = x.shape[0]
-        out = torch.empty((batch, 4, s_len), dtype=torch.float32,
-                          device=x.device)
+        out = x.new_empty((batch, 4, s_len))
         if s_len == 0 or batch == 0:
             return out
-        lib = _kernels.load()
-        err = lib.mm_correlate(
+        if self._fn is None:
+            self._fn = _kernels.load().mm_correlate
+        tile = pick_tile(self.nb, s_len, batch)
+        # the current stream's handle without building a torch.cuda.Stream
+        err = self._fn(
             x.data_ptr(), x.stride(0), batch, s_len,
-            self.basis(x.device).data_ptr(), self.nb, out.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            self.basis(device).data_ptr(), self.nb, tile,
+            smem_bytes(self.nb, tile), out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(device.index))
         _kernels.check(err, "mm_correlate")
         if batch == 1:
             Correlator.launches += 1
         else:
             Correlator.batch_launches += 1
         return out
-
-
-@functools.lru_cache(maxsize=64)
-def _correlator(basis_bytes: bytes, nb: int) -> Correlator:
-    return Correlator(np.frombuffer(basis_bytes, np.float32).reshape(4, nb))
-
-
-def correlate_kernel(x: torch.Tensor, basis_np: np.ndarray,
-                     s_len: int) -> torch.Tensor:
-    """The counterpart of correlate_pallas: K3 for a host basis constant,
-    one cached Correlator per basis.  x: [B, L] -> [B, 4, s_len]."""
-    basis32 = np.ascontiguousarray(basis_np, np.float32)
-    return _correlator(basis32.tobytes(), basis32.shape[1])(x, s_len)

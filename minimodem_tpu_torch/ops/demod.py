@@ -33,7 +33,7 @@ minimodem_tpu/ops/pallas_score.py:228-231) where the XLA path uses hypot,
 and the comb sums add the taps in ascending order where XLA picks its own
 reduction tree.
 
-`correlate_any` picks the stage-1 route as the JAX package's does
+`correlator_for` picks the stage-1 route as the JAX package's does
 (minimodem_tpu/ops/demod.py:202-212): float32 filters of up to 4096 taps
 go to the CUDA kernel (its plain version on the CPU), longer float32
 filters to an FFT correlation, and float64 ("perfect-capable") geometries
@@ -237,23 +237,24 @@ def correlate_fft(x: torch.Tensor, basis: torch.Tensor,
     return corr[..., :s_len]
 
 
-def correlate_any(x: torch.Tensor, geo: DemodGeometry, basis_np: np.ndarray,
-                  s_len: int) -> torch.Tensor:
+def correlator_for(geo: DemodGeometry, basis_np: np.ndarray):
     """Stage 1 by the route the geometry needs (the JAX package's
-    correlate_any): float64 chain, FFT for nb > 4096, else the CUDA kernel
-    (ops/correlate.py).  x: [B, s_len + halo - max_begin] float32 rows;
-    basis_np: make_basis(geo) in float64 for float64 geometries, else
-    float32 -> corr [B, 4, s_len] in float64 or float32."""
+    correlate_any), resolved once: a function (x, s_len) -> corr.  Float64
+    chain, FFT for nb > 4096, else the CUDA kernel's wrapper
+    (ops/correlate.py Correlator).  x: [B, s_len + halo - max_begin]
+    float32 rows; basis_np: make_basis(geo) in float64 for float64
+    geometries, else float32 -> corr [B, 4, s_len] in float64 or
+    float32."""
     if geo.use_f64:
-        basis = torch.from_numpy(np.asarray(basis_np, np.float64))
-        return correlate_direct(x.to(torch.float64), basis.to(x.device),
-                                s_len)
+        b64 = torch.from_numpy(np.asarray(basis_np, np.float64))
+        return lambda x, s_len: correlate_direct(
+            x.to(torch.float64), b64.to(x.device), s_len)
     if geo.nb > _DIRECT_CONV_MAX_NB:
-        basis = torch.from_numpy(np.asarray(basis_np, np.float32))
-        return correlate_fft(x, basis.to(x.device), s_len)
-    from .correlate import correlate_kernel
+        b32 = torch.from_numpy(np.asarray(basis_np, np.float32))
+        return lambda x, s_len: correlate_fft(x, b32.to(x.device), s_len)
+    from .correlate import Correlator
 
-    return correlate_kernel(x, basis_np, s_len)
+    return Correlator(basis_np)
 
 
 # ======================================================================
@@ -374,13 +375,13 @@ def _build_score_fn(geo: DemodGeometry, t_len: int, device: str):
     Output: [B, 6, t_len] int32 on `device`, the CHANNELS in order (floats
             bit-cast), so one copy brings a batch of chunks to the host.
     """
-    basis_np = make_basis(geo, np.float64 if geo.use_f64 else np.float32)
+    stage1 = correlator_for(
+        geo, make_basis(geo, np.float64 if geo.use_f64 else np.float32))
     s_len = t_len + geo.max_begin  # offsets where bit windows may start
 
     def score(x: torch.Tensor) -> torch.Tensor:
         x = x.to(device)
-        ch = score_frame_channels(correlate_any(x, geo, basis_np, s_len),
-                                  geo, t_len)
+        ch = score_frame_channels(stage1(x, s_len), geo, t_len)
         return torch.stack([ch[k].view(torch.int32) for k in CHANNELS],
                            dim=1)
 

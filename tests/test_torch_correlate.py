@@ -1,5 +1,5 @@
 """K3 parity: the port's stage-1 correlation (minimodem_tpu_torch/ops/
-correlate.py, ops/demod.py correlate_any) against the JAX package on the
+correlate.py, ops/demod.py correlator_for) against the JAX package on the
 CPU, where the port's wrapper runs the kernel's plain version.
 
 Tolerances, each with its reason:
@@ -146,12 +146,12 @@ def test_f64_route_matches_jax():
         (2, s_len + geo.nb - 1)).astype(np.float32)
     ref = np.stack([np.asarray(jax.jit(lambda v: _correlate_direct(
         v.astype(jnp.float64), jnp.asarray(basis), s_len))(r)) for r in x])
-    out = TD.correlate_any(torch.from_numpy(x), geo, basis, s_len)
+    out = TD.correlator_for(geo, basis)(torch.from_numpy(x), s_len)
     assert out.dtype == torch.float64
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-13, atol=1e-13)
     # a float32-rounded basis would miss that tolerance by far
-    off = TD.correlate_any(torch.from_numpy(x), geo,
-                           basis.astype(np.float32).astype(np.float64), s_len)
+    off = TD.correlator_for(geo, basis.astype(np.float32).astype(
+        np.float64))(torch.from_numpy(x), s_len)
     assert np.abs(off.numpy() - ref).max() > 1e-9
 
 
@@ -173,10 +173,69 @@ def test_fft_route_matches_jax():
         np.float32)
     ref = np.stack([np.asarray(jax.jit(lambda v: _correlate_fft(
         v, jnp.asarray(basis), s_len))(r)) for r in x])
-    out = TD.correlate_any(torch.from_numpy(x), geo, basis, s_len).numpy()
+    out = TD.correlator_for(geo, basis)(torch.from_numpy(x), s_len).numpy()
     assert out.dtype == np.float32 and out.shape == (2, 4, s_len)
     scale = np.abs(ref).max()
     np.testing.assert_allclose(out, ref, rtol=0, atol=2e-6 * scale)
+
+
+def _check_tile(nb, s_len):
+    """K3's tile rule at one geometry, for the batches the host engines
+    launch: the smallest power-of-two tile from TILE_MIN that holds the
+    halo rule (tile >= 8 * (nb - 1)) up to TILE_MAX unless the next tile
+    up would not fill the card (an SM without a CTA, or rounds of CTAs
+    under ROUND_FILL full); a CTA within the shared memory; at least one CTA
+    per SM wherever s_len allows it; the CTAs' tiles cover every offset
+    exactly once (the kernel's s0 = blockIdx.x * tile, n_s = min(tile,
+    s_len - s0))."""
+    from minimodem_tpu_torch.ops import correlate as K
+
+    for batch in (1, 22, 64):
+        tile = K.pick_tile(nb, s_len, batch)
+        n_x = -(-s_len // tile)
+
+        def ctas(t):
+            return batch * -(-s_len // t)
+
+        halo_tile = min(K.HALO_RATIO * (nb - 1), K.TILE_MAX)
+        assert K.TILE_MIN <= tile <= K.TILE_MAX and tile & (tile - 1) == 0
+        assert K.smem_bytes(nb, tile) <= 232_448, (nb, batch, tile)
+        assert tile >= halo_tile or not K.fills_the_card(ctas(2 * tile))
+        assert tile == K.TILE_MIN or tile // 2 < halo_tile
+        assert tile == K.TILE_MIN or K.fills_the_card(ctas(tile))
+        if s_len >= K.SMS * K.TILE_MIN:
+            assert ctas(tile) >= K.SMS, (nb, s_len, batch, tile)
+        covered = np.zeros(s_len, np.int32)
+        for bx in range(n_x):
+            s0 = bx * tile
+            n_s = min(tile, s_len - s0)
+            assert n_s > 0
+            covered[s0:s0 + n_s] += 1
+        assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("rate", [8000, 24000, 44100, 48000])
+def test_correlate_tile_rule_presets(rate):
+    """Every preset's geometry at the host engines' chunk length."""
+    from minimodem_tpu_torch.models.presets import PRESETS
+    from minimodem_tpu_torch.ops.correlate import MAX_NB, pick_tile
+    from minimodem_tpu_torch.ops.demod import DemodScorer
+
+    for name, make in PRESETS.items():
+        sc = DemodScorer(make(sample_rate=rate).cfg, "float32", device="cpu")
+        assert sc.geo.nb <= MAX_NB, name
+        _check_tile(sc.geo.nb, sc.chunk_len + sc.geo.max_begin)
+    if rate == 48000:
+        sc = DemodScorer(PRESETS["1200"]().cfg, device="cpu")
+        assert pick_tile(sc.geo.nb, sc.chunk_len + sc.geo.max_begin, 1) == 512
+
+
+@pytest.mark.parametrize("nb", [1, 7, 8, 37, 92, 147, 1056, 4095, 4096])
+def test_correlate_tile_rule_nb(nb):
+    """Synthetic filter lengths up to K3's limit, at the host chunk length
+    plus a frame of ~11 bits, and at a short row."""
+    _check_tile(nb, (1 << 17) + 10 * nb)
+    _check_tile(nb, 3000 + 3)
 
 
 def test_correlator_checks_and_raises():

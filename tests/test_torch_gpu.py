@@ -82,25 +82,57 @@ def test_fused_kernel_equals_plain_at_the_path_shape(cuda):
     np.testing.assert_array_equal(k.cpu().numpy(), p.cpu().numpy())
 
 
-@pytest.mark.parametrize("batch", [1, 4])
-@pytest.mark.parametrize("mode", ["1200", "same", "rtty"])
-def test_correlate_kernel_equals_plain(cuda, mode, batch):
-    """K3 on overlapping chunk rows of one stream (a row stride, no copy),
-    as DemodScorer.score_chunks hands them over, equals the plain version
-    on the same rows."""
-    from minimodem_tpu_torch.ops.correlate import Correlator, correlate_plain
+def _k3_input(case, batch):
+    """(basis [4, nb], stream, max_begin) of a K3 card case: a preset's
+    basis and noisy audio (nb 37: 1200 at 44.1 kHz, 40: 1200, 92: same,
+    147: 300 at 44.1 kHz, 1056: rtty), or a seeded normal basis and
+    stream of nb 4096, K3's longest filter."""
+    from minimodem_tpu_torch.models.modem import FskModem
     from minimodem_tpu_torch.ops.demod import geometry_from_config, make_basis
 
-    cfg, wav = _noisy(mode, 5, n_bytes=120)
-    geo = geometry_from_config(cfg, "float32")
+    rng = np.random.default_rng(5)
+    if case == "nb4096":
+        basis = rng.standard_normal((4, 4096)).astype(np.float32)
+        wav = rng.standard_normal(batch * (1 << 14) + 8192).astype(np.float32)
+        return basis, wav, 4096
+    mode, _, rate = case.partition("@")
+    m = FskModem(mode, sample_rate=int(rate or 48000), device="cpu")
+    wav = m.modulate(rng.integers(65, 91, size=120, dtype=np.uint8).tobytes())
+    wav = (wav + (rng.random(wav.size, dtype=np.float32) - np.float32(0.5))
+           * np.float32(0.6)).astype(np.float32)
+    geo = geometry_from_config(m.cfg, "float32")
+    return make_basis(geo, np.float32), wav, geo.max_begin
+
+
+@pytest.mark.parametrize("layout", ["chunks", "odd_stride", "ragged"])
+@pytest.mark.parametrize("batch", [1, 22, 64])
+@pytest.mark.parametrize(
+    "case", ["1200@44100", "1200", "same", "300@44100", "rtty", "nb4096"])
+def test_correlate_kernel_equals_plain(cuda, case, batch, layout):
+    """K3 on overlapping chunk rows of one stream (a row stride, no copy),
+    as DemodScorer.score_chunks hands them over, equals the plain version
+    on the same rows bit for bit.  `odd_stride`: rows one sample off the
+    chunk grid and an odd row stride, so most rows start off the 16-byte
+    grid (the kernel's plain-load staging); `ragged`: s_len % 4 != 0 (its
+    scalar stores)."""
+    from minimodem_tpu_torch.ops.correlate import Correlator, correlate_plain
+
+    basis, wav, max_begin = _k3_input(case, batch)
+    nb = basis.shape[1]
     t_len = 1 << 14
-    s_len = t_len + geo.max_begin
-    flat = np.zeros(batch * t_len + geo.halo, np.float32)
+    s_len = t_len + max_begin
+    if layout == "ragged":
+        s_len -= s_len % 4 == 0
+        assert s_len % 4
+    length = s_len + nb - 1
+    step = t_len + (layout == "odd_stride")
+    flat = np.zeros(1 + (batch - 1) * step + length, np.float32)
     n = min(len(wav), flat.size)
     flat[:n] = wav[:n]
-    rows = torch.from_numpy(flat).to(cuda).unfold(0, t_len + geo.halo, t_len)
+    start = int(layout == "odd_stride")
+    rows = torch.from_numpy(flat).to(cuda)[start:].unfold(0, length, step)
     assert rows.shape[0] == batch
-    corr = Correlator(make_basis(geo, np.float32))
+    corr = Correlator(basis)
     launches = Correlator.launches + Correlator.batch_launches
     k = corr(rows, s_len)
     assert Correlator.launches + Correlator.batch_launches == launches + 1
