@@ -41,10 +41,30 @@ one line each; any failure exits non-zero:
  10. K3 and host-engine timings (warm decode walls, the host engine's
      split between chunk scoring and the Python state machine, a
      torch.profiler breakdown), each beside the card's name and power
-     limit.
+     limit;
+ 11. device TX on the card against its CPU version: device_synthesize at
+     B = 4 and at one 64.3 s stream, device_synthesize_frames at rtty,
+     and `--synth-backend jax` (LUT 4096 and 16 bit-identical to the
+     numpy backend in S16 and FLOAT, the direct sine within one ulp);
+ 12. the on-device loopback against device="cpu", event for event:
+     1200 and SAME (flat schedules) and Bell-202 with 1.5 stop bits
+     (frame schedules), two streams each;
+ 13. the loopback's main path, the bench rows on the card: K1 and K2
+     held against their plain versions at the headline shape (B = 128
+     streams of 64.3 s of Bell-202 synthesized on the card), then with
+     the launch counts set to 0, the batched row synchronous and
+     pipelined 8 deep (every stream of every batch verified), the counts
+     read; then rtty and SAME (B = 8, 15 s), Caller-ID (B = 128,
+     pipeline 4) and the --benchmarks decode rows (60 s);
+ 14. a torch.profiler stage split of one warm B = 128 batch (synthesis,
+     K1, K2, upload, collect; the device idle share; how soon the host's
+     dispatch returned), its peak device memory, and K1 / K2 timed at
+     the loopback's shape beside their bounds.
 
-The next-to-last line is the kernels' JSON summary, preceded by the
-nvidia-smi line; the last line is {"ok": true, "device": {...}}.
+The kernels' JSON summary (each entry with its launches on the device
+engine's file decode and, as loopback_launches, on the loopback), the
+script's wall and the nvidia-smi line come before the last line, which
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -67,6 +87,8 @@ HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 # an estimate, not a measurement, of one step of K2's chain of decisions:
 # a shared-memory round trip and the warp's pick (~90 cycles at ~1.75 GHz)
 K2_STEP_NS_ESTIMATE = 50.0
+# the batched loopback's headline shape (the JAX package's bench.py)
+HEAD_BATCH, HEAD_SECONDS = 128, 64.3
 
 
 def fail(msg: str) -> None:
@@ -666,6 +688,280 @@ def host_engine_split(wav: str, device) -> str:
             f"render {1e3 * (wall - spent[1]):.2f} ms")
 
 
+def turns_atol(seg_len: int, cfg) -> float:
+    """Tolerance of device synthesis between two devices: one float32 ulp
+    of the largest per-sample turns of a seg_len-sample tone segment,
+    times 2pi, plus one ulp of a phase and of the sine (a float64 prefix
+    sum of non-integers, summed in another order, can move a phase to the
+    neighbouring float32)."""
+    import numpy as np
+
+    turns = seg_len * max(float(cfg.mark_f), float(cfg.space_f)) \
+        / cfg.sample_rate + 1.0
+    return 2 * np.pi * (float(np.spacing(np.float32(turns))) + 2.0 ** -24) \
+        + 2.0 ** -24
+
+
+def device_tx_check(dev) -> list:
+    """Device TX on the card against its CPU version: device_synthesize
+    at B = 4 and at one 64.3 s stream (exact phase, so at most one float32
+    ulp of the float64 sine apart), device_synthesize_frames at rtty
+    (within turns_atol), and `--synth-backend jax` (ops/tx_synth.py): LUT
+    4096 and 16 in S16 and FLOAT bit-identical to the numpy backend, the
+    direct sine within one float32 ulp (S16: one step).  -> rows."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch.codecs import Ascii8Codec
+    from minimodem_tpu_torch.config import TxOptions
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.ops.tx import Transmitter
+    from minimodem_tpu_torch.ops.tx_device import (
+        device_synthesize, device_synthesize_frames, frame_synth_params)
+    from minimodem_tpu_torch.sigio import SampleFormat
+
+    rng = np.random.default_rng(SEED + 11)
+    rows = []
+
+    def row(name, got, ref, atol):
+        diff = np.abs(got.astype(np.float64) - ref)
+        r = {"name": name, "max_abs_err": float(diff.max()),
+             "differ": int(np.count_nonzero(diff)), "n": int(diff.size),
+             "atol": atol}
+        rows.append(r)
+        if r["max_abs_err"] > atol:
+            fail(f"device TX {name}: max_abs_err {r['max_abs_err']} > {atol}")
+
+    cfg = FskModem("1200", device="cpu").cfg
+    for name, shape in (("B=4 x 4096 bits", (4, 4096)),
+                        ("one 64.3 s stream (77824 bits)", (1, 77824))):
+        bits = torch.from_numpy(rng.integers(0, 2, shape, dtype=np.uint8))
+        got = device_synthesize(bits.to(dev), cfg).cpu().numpy()
+        row(f"device_synthesize {name}", got,
+            device_synthesize(bits, cfg).numpy(), 2.0 ** -23)
+    rcfg = FskModem("rtty", device="cpu").cfg
+    bits = torch.from_numpy(rng.integers(0, 2, (3, 512, 5), dtype=np.uint8))
+    nf = torch.tensor([512, 300, 0], dtype=torch.int32)
+    got = device_synthesize_frames(bits.to(dev), nf.to(dev), rcfg, 2,
+                                   2).cpu().numpy()
+    row("device_synthesize_frames rtty [3, 512, 5]", got,
+        device_synthesize_frames(bits, nf, rcfg, 2, 2).numpy(),
+        turns_atol(max(frame_synth_params(rcfg)["seg_len"]), rcfg))
+    payload = bytes(33 + i % 94 for i in range(600))
+    for lut in (4096, 16, 0):
+        for fmt in (SampleFormat.S16, SampleFormat.FLOAT):
+            outs = []
+            for backend, d in (("jax", dev), ("numpy", "cpu")):
+                tx = Transmitter(cfg, TxOptions(sin_table_len=lut),
+                                 Ascii8Codec(), fmt, backend, d)
+                for b in payload:
+                    tx.send(b)
+                tx.finish()
+                outs.append(tx.drain(None))
+            if outs[0].dtype != outs[1].dtype:
+                fail(f"device TX LUT {lut} {fmt.name}: dtype differs")
+            row(f"--synth-backend jax LUT {lut} {fmt.name} vs numpy",
+                outs[0], outs[1],
+                0.0 if lut else (1.0 if fmt is SampleFormat.S16
+                                 else 2.0 ** -24))
+    return rows
+
+
+def events_close(got, ref) -> bool:
+    """Event types, integer lanes and bytes equal; NOCARRIER confidence
+    and amplitude totals within RTOL / ATOL."""
+    import numpy as np
+
+    if len(got) != len(ref):
+        return False
+    for (tt, tp, tb), (rt, rp, rb) in zip(got, ref):
+        if not (np.array_equal(tt, rt) and np.array_equal(tb, rb)):
+            return False
+        nc = tt == 2
+        if not (np.array_equal(tp[:, [0, 3, 4, 5]], rp[:, [0, 3, 4, 5]])
+                and np.array_equal(tp[~nc], rp[~nc])):
+            return False
+        if not np.allclose(tp[nc][:, 1:3].view(np.float32),
+                           rp[nc][:, 1:3].view(np.float32),
+                           rtol=RTOL, atol=ATOL):
+            return False
+    return True
+
+
+def loopback_cuda_vs_cpu(dev) -> list:
+    """DeviceLoopback on the card against device="cpu" (the kernels' plain
+    versions), two streams, flat (1200, SAME; 300 bytes) and frames mode
+    (Bell-202 with 1.5 stop bits; 120 bytes, a length the receiver decodes
+    clean at that framing, as the JAX package's does): event for event,
+    each stream decoding its payload.  -> rows."""
+    import numpy as np
+    from minimodem_tpu_torch.bench import _render_ok
+    from minimodem_tpu_torch.codecs import Ascii8Codec
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.ops.device_rx import DeviceLoopback
+    from minimodem_tpu_torch.ops.tx_device import (
+        tx_bit_schedule, tx_frame_schedule)
+
+    rows = []
+    for mode in ("1200", "same", "1200 --stopbits 1.5"):
+        cfg = FskModem(mode.split()[0], device="cpu").cfg
+        n = 300
+        if "stopbits" in mode:
+            cfg.nstopbits = np.float32(1.5)
+            cfg.finalize()
+            n = 120
+        texts = [bytes(33 + (i * 7 + 13 * j) % 94 for i in range(n))
+                 for j in range(2)]
+        runs = []
+        for d in (dev, "cpu"):
+            lb = DeviceLoopback(cfg, device=d)
+            if "stopbits" in mode:
+                sch = [tx_frame_schedule(t, cfg, Ascii8Codec()) for t in texts]
+                runs.append(lb.run_events_frames_batch(
+                    [s[0] for s in sch], sch[0][1:]))
+            else:
+                runs.append(lb.run_events_batch(
+                    [tx_bit_schedule(t, cfg, Ascii8Codec()) for t in texts]))
+        r = {"mode": mode, "same": events_close(runs[0], runs[1]),
+             "exact": _render_ok(cfg, "ascii8", texts, runs[0]),
+             "events": [e[0].tolist() for e in runs[0]]}
+        rows.append(r)
+        if not (r["same"] and r["exact"]):
+            fail(f"loopback {mode}: cuda == cpu {r['same']}, decode exact "
+                 f"{r['exact']}")
+    return rows
+
+
+def headline_sets(cfg, batch: int, pipeline: int, audio_seconds: float):
+    """The batched bench row's payloads and bit schedules (distinct per
+    stream and per pipelined batch; bench.batched_loopback_throughput
+    makes the same ones)."""
+    from minimodem_tpu_torch.bench import _bench_payload
+    from minimodem_tpu_torch.codecs import Ascii8Codec
+    from minimodem_tpu_torch.ops.tx_device import tx_bit_schedule
+
+    base = _bench_payload(cfg, audio_seconds)
+    sets = []
+    for j in range(pipeline):
+        payloads = [bytes((b + i + 7 * j) % 94 + 33 for b in base)
+                    for i in range(batch)]
+        sets.append((payloads, [tx_bit_schedule(p, cfg, Ascii8Codec())
+                                for p in payloads]))
+    return sets
+
+
+def loopback_kernels(lb, scheds, dev) -> dict:
+    """K1 and K2 at the loopback's shape (the B = 128 headline batch,
+    synthesized on the card): K1's planes bit for bit against its plain
+    version (eight rows at a time), K2's events, bytes and carry against
+    its plain version on a CPU copy of every stream; times per call (CUDA
+    events; stage_split has them alone), plain times, and the inputs'
+    bytes for the bounds."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch.ops.device_rx import (
+        _sched_pad, geo_from_key, make_score_packer_planes)
+    from minimodem_tpu_torch.ops.fused_score import score_planes_plain
+    from minimodem_tpu_torch.ops.mega_rx import (
+        MegaRx, MegaStatics, mega_rx_plain)
+
+    b = len(scheds)
+    b_pad = _sched_pad(max(len(s) for s in scheds))
+    bits = np.zeros((b, b_pad), np.uint8)
+    for i, s in enumerate(scheds):
+        bits[i, :len(s)] = s
+    loop = lb.build_loop(b_pad)
+    t_total = loop.t_total
+    x = loop.synthesize(torch.from_numpy(
+        np.packbits(bits, axis=1, bitorder="little")).to(dev))
+    packer, n_planes = make_score_packer_planes(lb.key, t_total, "float32")
+    planes = packer(x)
+    geo = geo_from_key(lb.key)
+    words = 0
+    plain_ms = 0.0
+    for r in range(0, b, 8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = score_planes_plain(x[r:r + 8], geo, t_total)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        words += int(torch.count_nonzero(p != planes[r:r + 8]))
+        del p
+    if words:
+        fail(f"K1 at the loopback's shape: {words} bit-different words")
+    totals = torch.tensor([len(s) * lb.bit_ns for s in scheds],
+                          dtype=torch.int32, device=dev)
+    mega = MegaRx(MegaStatics.build(lb.key, t_total, False))
+    ci = torch.zeros((b, 8), dtype=torch.int32, device=dev)
+    cf = torch.zeros((b, 4), dtype=torch.float32, device=dev)
+    thr = (1.5, 2.3)
+    tp0 = time.perf_counter()
+    same, out_k, _ = k2_compare(mega, planes, totals, thr, ci, cf, True)
+    k2_plain_ms = (time.perf_counter() - tp0) * 1e3   # incl. the plain copy
+    if not same:
+        fail("K2 at the loopback's shape disagrees with its plain version")
+    res = {
+        "shape_k1": f"{list(x.shape)} -> {list(planes.shape)}",
+        "shape_k2": f"{list(planes.shape)}, {b} streams",
+        "k1_ms": cuda_ms(lambda: packer(x), 3),
+        "k1_plain_ms": plain_ms,
+        "k1_bytes": 4 * (x.numel() + planes.numel()),
+        "k1_flop": 2 * 4 * geo.nb * t_total * b,
+        "k2_ms": cuda_ms(lambda: mega(planes, totals, thr, ci, cf, True), 3),
+        "k2_plain_ms": k2_plain_ms,
+        "k2_bytes": 4 * mega_rx_plain.words + 32 * int(out_k[1].sum())
+        + int(out_k[3].sum()) + 48 * b,
+        "k2_searches": mega_rx_plain.searches.copy(),
+        "k1_words": words, "k2_same": same,
+    }
+    del x, planes, out_k
+    torch.cuda.empty_cache()
+    return res
+
+
+STAGES = (("K1", "fused_score_kernel"), ("K2", "mega_rx_kernel"),
+          ("upload", "Memcpy HtoD"), ("collect", "Memcpy DtoH"))
+
+
+def stage_split(lb, scheds) -> dict:
+    """One warm synchronous batch under torch.profiler: device time by
+    stage (K1, K2, the bit upload, the result copies; every other device
+    kernel is the synthesis, with the audio buffer's zero fill), the
+    device busy and idle share of the call's wall, and how long the host
+    took to dispatch the batch (dispatch returns without waiting)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    lb.run_events_batch(scheds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = lb.dispatch_events_batch(scheds)
+    t_disp_plain = time.perf_counter() - t0
+    lb.collect_events_batch(h)
+    wall_plain = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        h = lb.dispatch_events_batch(scheds)
+        t_disp = time.perf_counter() - t0
+        lb.collect_events_batch(h)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = {name: 0.0 for name, _ in STAGES}
+    split["synthesis"] = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(e, "self_device_time_total", 0) / 1e3
+        if ms <= 0:
+            continue
+        name = next((n for n, k in STAGES if k in e.key), "synthesis")
+        split[name] += ms
+    busy = sum(split.values())
+    return {"split": split, "busy_ms": busy, "wall_ms": wall * 1e3,
+            "dispatch_ms": t_disp * 1e3, "wall_plain_ms": wall_plain * 1e3,
+            "dispatch_plain_ms": t_disp_plain * 1e3}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -693,6 +989,7 @@ def main() -> int:
     from minimodem_tpu_torch.ops.mega_rx import (
         MegaReceiver, MegaRx, MegaStatics, mega_rx_plain)
 
+    t_start = time.perf_counter()
     # plain versions run in full float32 on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -907,6 +1204,90 @@ def main() -> int:
     phase(f"host engine split of one warm decode: {host_split_line} "
           f"({card})")
 
+    # ---- 11. device TX on the card ----
+    for r in device_tx_check(dev):
+        phase(f"device TX {r['name']} (cuda vs cpu): max_abs_err "
+              f"{r['max_abs_err']} (tolerance {r['atol']}), {r['differ']} of "
+              f"{r['n']} samples differ")
+
+    # ---- 12. the loopback on the card against device="cpu" ----
+    for r in loopback_cuda_vs_cpu(dev):
+        phase(f"loopback {r['mode']}, 2 streams: cuda == cpu "
+              f"event for event {r['same']}, decode exact {r['exact']}, "
+              f"event types {r['events']}")
+
+    # ---- 13. the loopback's main path: the bench rows on the card ----
+    from minimodem_tpu_torch import bench
+    from minimodem_tpu_torch.ops.device_rx import DeviceLoopback
+
+    head = headline_sets(cfg, HEAD_BATCH, 1, HEAD_SECONDS)[0][1]
+    lb = DeviceLoopback(cfg, device=dev)
+    lk = loopback_kernels(lb, head, dev)
+    phase(f"K1 at the loopback's shape {lk['shape_k1']}: bit-different "
+          f"words {lk['k1_words']}; K2 at {lk['shape_k2']}: identical "
+          f"events/bytes/carry {lk['k2_same']}, frame searches per stream "
+          f"max {int(lk['k2_searches'].max())}")
+    FusedScorer.launches = MegaRx.launches = 0
+    score_planes_plain.calls = mega_rx_plain.calls = 0
+    rows = {"batched": bench.batched_loopback_throughput(
+                "1200", HEAD_SECONDS, HEAD_BATCH, device=dev),
+            "batched, pipeline 8": bench.batched_loopback_throughput(
+                "1200", HEAD_SECONDS, HEAD_BATCH, pipeline=8, device=dev)}
+    lb_launches = {"fused_score": FusedScorer.launches,
+                   "mega_rx": MegaRx.launches}
+    lb_plain = score_planes_plain.calls + mega_rx_plain.calls
+    if min(lb_launches.values()) < 1 or lb_plain:
+        fail(f"loopback launches {lb_launches}, plain calls {lb_plain}")
+    rows["rtty"] = bench.mode_loopback_throughput("rtty", device=dev)
+    rows["same"] = bench.mode_loopback_throughput("same", device=dev)
+    rows["callerid"] = bench.callerid_throughput(device=dev)
+    rows["decode pcm16"] = bench.decode_throughput(device=dev)
+    rows["decode ulaw"] = bench.decode_throughput(encoding="ulaw",
+                                                  device=dev)
+    rows["loopback one stream"] = bench.loopback_throughput(device=dev)
+    for name, r in rows.items():
+        extra = {k: v for k, v in r.items() if k not in (
+            "mode", "audio_seconds", "wall_seconds", "real_time_factor",
+            "decode_exact")}
+        phase(f"bench {name} ({r['mode']}, {extra}): "
+              f"{r['audio_seconds']:.1f} audio s in "
+              f"{r['wall_seconds'] * 1e3:.1f} ms = {r['real_time_factor']:.1f}"
+              f"x real time, decode exact {r['decode_exact']} ({card})")
+        if not r["decode_exact"]:
+            fail(f"bench {name} does not decode exact")
+    phase(f"loopback launches in the two batched rows (counts set to 0 "
+          f"before them): {lb_launches}, plain calls {lb_plain}")
+
+    # ---- 14. stage split and peak memory of one warm B = 128 batch ----
+    ss = stage_split(lb, head)
+    if not ss["busy_ms"]:
+        fail("torch.profiler saw no device time in the stage split")
+    parts = "; ".join(f"{k} {v:.3f} ms ({100 * v / ss['busy_ms']:.1f}%)"
+                      for k, v in ss["split"].items())
+    phase(f"stage split of one warm B = {HEAD_BATCH} x {HEAD_SECONDS} s batch "
+          f"(torch.profiler): {parts}; device busy {ss['busy_ms']:.3f} ms of "
+          f"{ss['wall_ms']:.2f} ms wall (idle "
+          f"{100 - 100 * ss['busy_ms'] / ss['wall_ms']:.1f}%); the host's "
+          f"dispatch returned after {ss['dispatch_ms']:.2f} ms; unprofiled: "
+          f"wall {ss['wall_plain_ms']:.2f} ms, dispatch returned after "
+          f"{ss['dispatch_plain_ms']:.2f} ms ({card})")
+    lk["k1_kernel_ms"] = ss["split"]["K1"]
+    lk["k2_kernel_ms"] = ss["split"]["K2"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lb.run_events_batch(head)
+    peak = torch.cuda.max_memory_allocated()
+    phase(f"peak device memory of one B = {HEAD_BATCH} x {HEAD_SECONDS} s "
+          f"batch: {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    lk["k1_bound"] = bound(lk["k1_bytes"], lk["k1_flop"])
+    lk["k2_bound"] = bound(lk["k2_bytes"], 0)
+    phase(f"time at the loopback's shape: K1 {fmt_ms(lk['k1_kernel_ms'])} "
+          f"alone, {lk['k1_ms']:.4f} ms per call, plain {lk['k1_plain_ms']:.1f}"
+          f" ms, bound {lk['k1_bound'][0]:.4f} ms ({lk['k1_bound'][1]}); K2 "
+          f"{fmt_ms(lk['k2_kernel_ms'])} alone, {lk['k2_ms']:.4f} ms per call, "
+          f"plain {lk['k2_plain_ms']:.1f} ms (CPU loop), roofline "
+          f"{lk['k2_bound'][0]:.4f} ms ({lk['k2_bound'][1]}) ({card})")
+
     # K1: the audio row read and the planes written once; 4 * nb FMAs per
     # scored offset (stage 2's comb sums are a few percent more)
     geo1 = scorer.geo
@@ -932,13 +1313,23 @@ def main() -> int:
          "launches": launches["fused_score"], "max_abs_err": k1_err,
          "ms": k1_ms, "kernel_ms": k1_kernel_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "bound_by": k1_bound[1], "library_ms": None,
+         "loopback_launches": lb_launches["fused_score"],
+         "loopback_ms": lk["k1_ms"], "loopback_kernel_ms": lk["k1_kernel_ms"],
+         "loopback_plain_ms": lk["k1_plain_ms"],
+         "loopback_bound_ms": lk["k1_bound"][0],
+         "loopback_bound_by": lk["k1_bound"][1]},
         {"name": "mega_rx", "route": "cuda", "source": src + "mega_rx.cu",
          "replaces": "minimodem_tpu/ops/pallas_rx.py:1100",
          "launches": launches["mega_rx"], "max_abs_err": k2_err,
          "ms": k2_ms, "kernel_ms": k2_kernel_ms, "us_per_frame": k2_us_frame,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
-         "bound_by": k2_bound[1], "library_ms": None},
+         "bound_by": k2_bound[1], "library_ms": None,
+         "loopback_launches": lb_launches["mega_rx"],
+         "loopback_ms": lk["k2_ms"], "loopback_kernel_ms": lk["k2_kernel_ms"],
+         "loopback_plain_ms": lk["k2_plain_ms"],
+         "loopback_bound_ms": lk["k2_bound"][0],
+         "loopback_bound_by": lk["k2_bound"][1]},
         {"name": "correlate", "route": "cuda", "source": src + "correlate.cu",
          "replaces": "minimodem_tpu/ops/pallas_demod.py:84",
          "launches": host["host"]["launches"],
@@ -946,7 +1337,8 @@ def main() -> int:
          "kernel_ms": k3a["kernel_ms"], "plain_ms": k3a["plain_ms"],
          "bound_ms": k3a["bound_ms"], "bound_by": k3a["bound_by"],
          "library_ms": k3a["library_ms"],
-         "library_device_ms": k3a["library_device_ms"]},
+         "library_device_ms": k3a["library_device_ms"],
+         "loopback_launches": 0},
         {"name": "correlate_batch", "route": "cuda",
          "source": src + "correlate.cu",
          "replaces": "minimodem_tpu/ops/pallas_demod.py:138",
@@ -955,8 +1347,10 @@ def main() -> int:
          "kernel_ms": k3b["kernel_ms"], "plain_ms": k3b["plain_ms"],
          "bound_ms": k3b["bound_ms"], "bound_by": k3b["bound_by"],
          "library_ms": k3b["library_ms"],
-         "library_device_ms": k3b["library_device_ms"]},
+         "library_device_ms": k3b["library_device_ms"],
+         "loopback_launches": 0},
     ]}), flush=True)
+    phase(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 The minimodem-tpu CLI on the PyTorch + CUDA port: the same flags, presets
 and stdout/stderr split, plus --device {cuda,cpu} (default cuda) for
-where the receiver runs.  Full flag surface and baudmode-preset semantics of the reference CLI
+where the receiver, `--synth-backend jax` and `--benchmarks` run.  Full
+flag surface and baudmode-preset semantics of the reference CLI
 (reference: src/minimodem.c:377-440 usage, 591-886 option/preset parsing,
 900-965 defaulting rules, 977-1012 TX flow, 1014-1131 RX setup).
 stdout carries decoded data; stderr carries protocol messages — tests
@@ -220,6 +221,17 @@ def _presplit_optional_args(argv: list) -> list:
     return out
 
 
+def _card_ready(device: str) -> bool:
+    """False, after one E: line, when --device cuda has no card."""
+    if device == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            sys.stderr.write("E: --device cuda: no CUDA device is "
+                             "available (use --device cpu)\n")
+            return False
+    return True
+
+
 def main(argv=None) -> int:
     """Run the CLI; features the port does not serve yet exit 1 with one
     E: line naming their ROADMAP item."""
@@ -392,9 +404,12 @@ def _main(argv=None) -> int:
             _usage()
 
     if run_benchmarks:
-        raise NotImplementedError(
-            "--benchmarks is not ported to the PyTorch package yet "
-            "(ROADMAP queue 1 item 7)")
+        if not _card_ready(device):
+            return 1
+        from .bench import run_decode_benchmarks, run_tx_benchmarks
+        run_tx_benchmarks(device=device)
+        run_decode_benchmarks(device=device)
+        return 0
 
     if tx_mode is None:
         tx_mode = False
@@ -549,6 +564,8 @@ def _main(argv=None) -> int:
         from .ops.tx import Transmitter
         kw = {"usos": usos} if encoder_name == "baudot" else {}
         encoder = get_codec(encoder_name, **kw)
+        if synth_backend == "jax" and not _card_ready(device):
+            return 1
         try:
             stream = open_stream("file", None, Direction.PLAYBACK,
                                  sample_fmt, sample_rate, nchannels,
@@ -556,7 +573,8 @@ def _main(argv=None) -> int:
         except (OSError, RuntimeError) as e:
             sys.stderr.write(f"{filename}: {e}\n")
             return 1
-        txer = Transmitter(cfg, tx_opts, encoder, sample_fmt, synth_backend)
+        txer = Transmitter(cfg, tx_opts, encoder, sample_fmt, synth_backend,
+                           device)
         # the reference's stdin loop: select() idle detection + idle
         # carrier, SIGALRM trailer when interactive (minimodem.c:114-250)
         txer.transmit_stdin(sys.stdin.buffer, stream, False, txcarrier)
@@ -564,12 +582,8 @@ def _main(argv=None) -> int:
         return 0
 
     # ============== RX ==============
-    if device == "cuda":
-        import torch
-        if not torch.cuda.is_available():
-            sys.stderr.write("E: --device cuda: no CUDA device is "
-                             "available (use --device cpu)\n")
-            return 1
+    if not _card_ready(device):
+        return 1
     try:
         stream = open_stream("file", None, Direction.RECORD, sample_fmt,
                              sample_rate, nchannels, "minimodem-tpu", filename)

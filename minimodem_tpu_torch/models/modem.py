@@ -40,18 +40,19 @@ class FskModem:
         self.sample_format = sample_format
         self.precision = precision
         self.usos = usos                 # baudot unshift-on-space (-u)
-        self.device = device             # where demodulate() runs
+        self.device = device             # demodulate(), "jax" synthesis
 
     # ------------------------------------------------------------------
-    def modulate(self, data: bytes) -> np.ndarray:
-        """Encode bytes to FSK audio samples (host numpy synthesis)."""
+    def modulate(self, data: bytes, synth_backend: str = "numpy") -> np.ndarray:
+        """Encode bytes to FSK audio samples (synth_backend "jax": the
+        device synthesis on self.device, the same samples)."""
         if not self.preset.tx_supported:
             raise NotImplementedError(
                 f"{self.preset.decoder} --tx mode is not supported")
         kw = {"usos": self.usos} if self.preset.encoder == "baudot" else {}
         encoder = get_codec(self.preset.encoder, **kw)
         txer = Transmitter(self.cfg, self.tx_options, encoder,
-                           self.sample_format)
+                           self.sample_format, synth_backend, self.device)
         for b in data:
             txer.send(b)
         txer.finish()

@@ -14,6 +14,10 @@ the host, where rx/engine.py renders them.  Decisions replay the
 reference's sequential receive loop (reference: src/minimodem.c:1137-1463,
 src/fsk.c:449-538) and match the JAX package event for event.
 
+DeviceLoopback puts device synthesis (ops/tx_device.py) in front of K1
+and K2: bit schedules go up, events come back, and the audio never
+crosses the host link.
+
 Geometries the megakernel does not serve (float64 scoring, more than 8
 data bits, more than 32 frame bits, scan windows over 16384 samples)
 raise NotImplementedError: the JAX package's XLA while_loop receiver is
@@ -236,6 +240,21 @@ def make_score_packer_planes(cfg_key, t_total: int, input_dtype: str):
     return score_planes, scorer.n_planes
 
 
+def _per_stream(nev: np.ndarray, nby: np.ndarray, ev_h: np.ndarray,
+                by_h: np.ndarray, cap: int):
+    """Host copies of the device results -> per-stream (ev_type, ev_pay,
+    byte_stream) tuples.  ev_h [B, >= max n_ev, 8] int32, by_h [B, >= max
+    n_by] uint8; cap is the device byte log's width."""
+    bmax = int(nby.max(initial=0))
+    if bmax > cap:
+        raise RuntimeError(f"byte log overflow ({bmax} > {cap})")
+    ev_h = ev_h.view(np.uint32)
+    return [
+        (*unpack_events(ev_h[i].T, int(nev[i])), by_h[i, :int(nby[i])].copy())
+        for i in range(len(nev))
+    ]
+
+
 def _collect(out, b: int):
     """Device results -> per-stream (ev_type, ev_pay, byte_stream) tuples.
     out = (ev [B, E, 8] i32, n_ev [B], bytes [B, cap] u8, n_by [B])."""
@@ -243,15 +262,9 @@ def _collect(out, b: int):
     nev = n_ev.cpu().numpy()
     nby = n_by.cpu().numpy()
     kmax = int(nev.max(initial=0))
-    bmax = int(nby.max(initial=0))
-    if bmax > by.shape[1]:
-        raise RuntimeError(f"byte log overflow ({bmax} > {by.shape[1]})")
-    ev_h = ev[:, :kmax].cpu().numpy().view(np.uint32)
-    by_h = by[:, :bmax].cpu().numpy()
-    return [
-        (*unpack_events(ev_h[i].T, int(nev[i])), by_h[i, :int(nby[i])].copy())
-        for i in range(b)
-    ]
+    bmax = min(int(nby.max(initial=0)), by.shape[1])
+    return _per_stream(nev, nby, ev[:, :kmax].cpu().numpy(),
+                       by[:, :bmax].cpu().numpy(), by.shape[1])
 
 
 class DeviceReceiver:
@@ -428,3 +441,326 @@ class PipelinedReceiver:
                 cf = out[5]
                 pending = upload(i + 1)
             yield _collect(out[:4], 1)[0]
+
+
+def _sched_pad(n_bits: int) -> int:
+    """Bit-schedule pad bucket: powers of two from 512 up to 4096 (so a
+    short burst — e.g. one ~300-bit Caller-ID message — doesn't score
+    8x its audio), then multiples of 4096 (512 packed bytes/stream over
+    the host link)."""
+    v = 512
+    while v < n_bits and v < 4096:
+        v *= 2
+    if v < n_bits:
+        v = ((n_bits + 4095) // 4096) * 4096
+    return v
+
+
+# event records per stream in the prefetched result copy; a stream that
+# logged more makes collect fetch the whole log (events are carrier
+# transitions, a clean stream logs two)
+EV_CAP = 32
+# samples synthesized per step of the loopback: bounds the float64
+# temporaries of the synthesis to a few hundred MB at any batch size
+SYNTH_STEP = 1 << 25
+
+
+class _HostBuffers:
+    """Page-locked host buffers, made once per (shape, dtype) and reused:
+    a dispatched batch takes its upload and result buffers and gives them
+    back when it is collected (by then every copy of it has finished).
+    On the CPU they are plain tensors."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self._free = {}
+
+    def take(self, shape, dtype) -> torch.Tensor:
+        free = self._free.get((tuple(shape), dtype))
+        if free:
+            return free.pop()
+        return torch.empty(tuple(shape), dtype=dtype, pin_memory=self.pinned)
+
+    def give(self, bufs) -> None:
+        for t in bufs:
+            self._free.setdefault((tuple(t.shape), t.dtype), []).append(t)
+
+
+class _Batch:
+    """A dispatched loopback batch: the device results of each sub-batch,
+    the host buffers it holds, and the events of its compute and copy."""
+
+    def __init__(self, outs, held, done):
+        self.outs = outs          # per sub-batch (ev, n_ev, bytes, n_by)
+        self.held = held          # pinned upload buffers
+        self.done = done          # CUDA event after the last K2, or None
+        self.host = None          # per sub-batch host copies, once prefetched
+        self.copied = None        # CUDA event after the copies, or None
+
+
+class DeviceLoopback:
+    """On-device TX->RX pipeline: a compact bit schedule goes up, decoded
+    frame events come back; audio never crosses the host link.
+
+    Counterpart of minimodem_tpu/ops/device_rx.py::DeviceLoopback.  One
+    batch synthesizes every stream's audio on `device`
+    (ops/tx_device.py), then runs K1 and K2 over it (ops/mega_rx.py
+    mega_runner) and returns per-stream (ev_type, ev_pay, byte_stream)
+    tuples.  dispatch_* enqueues a batch and returns without waiting
+    (CUDA launches are asynchronous), prefetch_* starts the copies of its
+    small results into pinned host buffers on a copy stream, collect_*
+    waits for them and unpacks: a serving loop that dispatches batch j+1
+    before collecting batch j overlaps the host's work with the card's.
+
+    Geometries the megakernel route does not serve raise
+    NotImplementedError (ROADMAP queue 1 item 8)."""
+
+    def __init__(self, cfg: ModemConfig, precision: str = "auto",
+                 amplitude: float = 1.0, rx_one: bool = False,
+                 device=_device.DEFAULT):
+        from .mega_rx import MegaReceiver
+        from .tx_device import frame_synth_params, uniform_bits_supported
+
+        self.cfg = cfg
+        self.key = device_rx_key(cfg, precision)
+        MegaReceiver.check_supported(self.key)
+        self.bit_ns = cfg.bit_nsamples_tx
+        self.uniform = uniform_bits_supported(cfg)
+        self.frame_len = frame_synth_params(cfg)["frame_len"]
+        self.halo = geo_from_key(self.key).halo
+        self.device = torch.device(device)
+        self._amplitude = amplitude
+        self._rx_one = rx_one
+        self._fns = {}
+        self._bufs = None
+        self._copy_stream = None
+
+    def build_loop(self, b_pad: int, frames_mode: bool = False,
+                   lead_trail: tuple = (2, 2)):
+        """The synth + decode program for one schedule width: run(bits,
+        totals, (thr, limit), n_frames=None) -> (ev, n_ev, bytes, n_by) on
+        bits' device.  bits is [B, b_pad // 8] uint8, the flat bit
+        schedules packed LSB-first (np.packbits bitorder="little"), or in
+        frames mode [B, b_pad, n_data_bits] uint8 per-frame data-bit rows
+        with n_frames [B] the count of real frames.  Its two halves are
+        run.synthesize(bits, n_frames=None) -> audio [B, t_total + halo]
+        float32 and run.t_total, the scored length."""
+        from .mega_rx import mega_runner
+        from .tx_device import device_synthesize, device_synthesize_frames
+
+        cache_key = (b_pad, frames_mode, tuple(lead_trail))
+        if cache_key in self._fns:
+            return self._fns[cache_key]
+        cfg = self.cfg
+        if frames_mode:
+            n_samples = (lead_trail[0] * self.bit_ns
+                         + b_pad * self.frame_len
+                         + lead_trail[1] * self.bit_ns)
+        else:
+            n_samples = b_pad * self.bit_ns
+        t_total = _round_up_pow2(n_samples + cfg.nsamples_overscan + 1)
+        rx = mega_runner(self.key, t_total, self._rx_one, "float32", True)
+        width = t_total + self.halo
+        amp = self._amplitude
+        rows = max(1, SYNTH_STEP // n_samples)
+
+        def synthesize(bits, n_frames=None):
+            dev, bsz = bits.device, bits.shape[0]
+            # the audio in a zeroed buffer: zero signal past each stream's
+            # synthesized schedule, as the JAX loop pads it
+            x = torch.zeros((bsz, width), dtype=torch.float32, device=dev)
+            shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+            for r in range(0, bsz, rows):
+                part = bits[r:r + rows]
+                if frames_mode:
+                    s = device_synthesize_frames(
+                        part, n_frames[r:r + rows], cfg, lead_trail[0],
+                        lead_trail[1], amp)
+                else:
+                    unpacked = ((part[:, :, None] >> shifts) & 1).reshape(
+                        part.shape[0], b_pad)
+                    s = device_synthesize(unpacked, cfg, amp)
+                x[r:r + rows, :n_samples] = s
+                del s
+            return x
+
+        def loop(bits, totals, thr, n_frames=None):
+            x = synthesize(bits, n_frames)
+            bsz, dev = x.shape[0], x.device
+            ci = torch.zeros((bsz, 8), dtype=torch.int32, device=dev)
+            cf = torch.zeros((bsz, 4), dtype=torch.float32, device=dev)
+            return rx(x, totals, thr, ci, cf)[:4]
+
+        loop.synthesize, loop.t_total = synthesize, t_total
+        self._fns[cache_key] = loop
+        return loop
+
+    # ------------------------------------------------------------------
+    def _start(self) -> torch.device:
+        dev = _device.require(self.device)
+        if self._bufs is None:
+            self._bufs = _HostBuffers(dev.type == "cuda")
+            if dev.type == "cuda":
+                self._copy_stream = torch.cuda.Stream(dev)
+        return dev
+
+    def _put(self, a: np.ndarray, dev, held: list) -> torch.Tensor:
+        """Upload a host array: through a pinned buffer without waiting on
+        the card, or as a tensor view on the CPU."""
+        if dev.type != "cuda":
+            return torch.from_numpy(a)
+        h = self._bufs.take(a.shape, torch.from_numpy(a[:0]).dtype)
+        h.numpy()[...] = a
+        held.append(h)
+        return h.to(dev, non_blocking=True)
+
+    def _dispatch(self, parts, b_pad, conf_threshold, conf_search_limit,
+                  frames_mode=False, lead_trail=(2, 2)) -> _Batch:
+        """Enqueue one program per part = (bits, totals[, n_frames])."""
+        dev = self._start()
+        loop = self.build_loop(b_pad, frames_mode, lead_trail)
+        thr = (float(conf_threshold), float(conf_search_limit))
+        held, outs = [], []
+        for part in parts:
+            args = [self._put(a, dev, held) for a in part]
+            outs.append(loop(args[0], args[1], thr, *args[2:]))
+        done = None
+        if dev.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+        return _Batch(outs, held, done)
+
+    def _flat_parts(self, sched_lists, b_pad):
+        parts = []
+        for scheds in sched_lists:
+            bits = np.zeros((len(scheds), b_pad), np.uint8)
+            for i, s in enumerate(scheds):
+                bits[i, :len(s)] = s
+            # 8 bits per byte over the host link, unpacked on the device
+            parts.append((np.packbits(bits, axis=1, bitorder="little"),
+                          np.asarray([len(s) * self.bit_ns for s in scheds],
+                                     np.int32)))
+        return parts
+
+    def dispatch_events_batch(self, sched_list, conf_threshold: float = 1.5,
+                              conf_search_limit: float = 2.3) -> _Batch:
+        """Async half of run_events_batch: upload and enqueue the batch and
+        return a handle without waiting for results."""
+        assert self.uniform, (
+            "flat bit schedules need uniform bit segments; use "
+            "run_events_frames_batch for fractional stop bits")
+        b_pad = _sched_pad(max(len(s) for s in sched_list))
+        return self._dispatch(self._flat_parts([sched_list], b_pad), b_pad,
+                              conf_threshold, conf_search_limit)
+
+    def prefetch_events_batch(self, handle: _Batch) -> _Batch:
+        """Start the device -> host copies of a dispatched batch's results
+        (counts, the first EV_CAP event records, the byte logs) into pinned
+        buffers on the copy stream, without blocking."""
+        if handle.host is not None:
+            return handle
+        if handle.done is None:                       # CPU: already there
+            handle.host = [(n_ev, n_by, ev, by)
+                           for ev, n_ev, by, n_by in handle.outs]
+            return handle
+        stream = self._copy_stream
+        host = []
+        with torch.cuda.stream(stream):
+            stream.wait_event(handle.done)
+            for ev, n_ev, by, n_by in handle.outs:
+                srcs = (n_ev, n_by, ev[:, :min(EV_CAP, ev.shape[1])], by)
+                dsts = []
+                for src in srcs:
+                    src.record_stream(stream)
+                    dst = self._bufs.take(src.shape, src.dtype)
+                    dst.copy_(src, non_blocking=True)
+                    dsts.append(dst)
+                host.append(tuple(dsts))
+            handle.copied = torch.cuda.Event()
+            handle.copied.record(stream)
+        handle.host = host
+        return handle
+
+    def collect_events_batch(self, handle: _Batch):
+        """Blocking half: wait for a dispatched batch's copies and unpack
+        the per-stream event tuples (sub-batches in order)."""
+        self.prefetch_events_batch(handle)
+        if handle.copied is not None:
+            handle.copied.synchronize()
+        res = []
+        for (ev, _, by, _), (n_ev, n_by, ev_c, by_h) in zip(handle.outs,
+                                                           handle.host):
+            nev, nby = n_ev.numpy(), n_by.numpy()
+            kmax = int(nev.max(initial=0))
+            ev_h = (ev_c.numpy() if kmax <= ev_c.shape[1]
+                    else ev[:, :kmax].cpu().numpy())    # rare: the whole log
+            res.extend(_per_stream(nev, nby, ev_h, by_h.numpy(),
+                                   by.shape[1]))
+        if handle.done is not None:
+            self._bufs.give(handle.held)
+            self._bufs.give(t for h in handle.host for t in h)
+        handle.held, handle.host = [], None
+        return res
+
+    def run_events_batch(self, sched_list, conf_threshold: float = 1.5,
+                         conf_search_limit: float = 2.3):
+        """sched_list: list of uint8 bit schedules (one per stream).
+        Returns per-stream (ev_type, ev_pay, byte_stream) tuples."""
+        return self.collect_events_batch(self.dispatch_events_batch(
+            sched_list, conf_threshold, conf_search_limit))
+
+    def dispatch_events_chain(self, sched_lists,
+                              conf_threshold: float = 1.5,
+                              conf_search_limit: float = 2.3) -> _Batch:
+        """Dispatch K equal-width batches back to back on the stream; their
+        results arrive together (chain-major) at collect."""
+        assert self.uniform, (
+            "flat bit schedules need uniform bit segments; use "
+            "run_events_frames_batch for fractional stop bits")
+        assert len(sched_lists) >= 2, (
+            "dispatch_events_chain needs >= 2 sub-batches; use "
+            "dispatch_events_batch for a single batch")
+        batch = len(sched_lists[0])
+        assert all(len(s) == batch for s in sched_lists), \
+            "chained batches must be equal width"
+        b_pad = _sched_pad(max(len(s) for scheds in sched_lists
+                               for s in scheds))
+        return self._dispatch(self._flat_parts(sched_lists, b_pad), b_pad,
+                              conf_threshold, conf_search_limit)
+
+    def prefetch_events_chain(self, handle: _Batch) -> _Batch:
+        return self.prefetch_events_batch(handle)
+
+    def collect_events_chain(self, handle: _Batch):
+        """K * batch per-stream event tuples, sub-batch 0's streams first."""
+        return self.collect_events_batch(handle)
+
+    def run_events_chain(self, sched_lists, conf_threshold: float = 1.5,
+                         conf_search_limit: float = 2.3):
+        return self.collect_events_chain(self.dispatch_events_chain(
+            sched_lists, conf_threshold, conf_search_limit))
+
+    def run_events_frames_batch(self, frame_sched_list,
+                                lead_trail: tuple = (2, 2),
+                                conf_threshold: float = 1.5,
+                                conf_search_limit: float = 2.3):
+        """frame_sched_list: list of [F_i, n_data_bits] uint8 frame-bit
+        arrays (tx_device.tx_frame_schedule rows).  Works for any
+        nstopbits, fractional included (device_synthesize_frames)."""
+        f_real = [fb.shape[0] for fb in frame_sched_list]
+        f_pad = ((max(f_real) + 511) // 512) * 512
+        bits = np.zeros((len(frame_sched_list), f_pad, self.cfg.n_data_bits),
+                        np.uint8)
+        for i, fb in enumerate(frame_sched_list):
+            bits[i, :fb.shape[0]] = fb
+        totals = np.asarray(
+            [lead_trail[0] * self.bit_ns + n * self.frame_len
+             + lead_trail[1] * self.bit_ns for n in f_real], np.int32)
+        return self.collect_events_batch(self._dispatch(
+            [(bits, totals, np.asarray(f_real, np.int32))], f_pad,
+            conf_threshold, conf_search_limit, True, tuple(lead_trail)))
+
+    def run_events(self, sched_bits: np.ndarray, conf_threshold: float = 1.5,
+                   conf_search_limit: float = 2.3):
+        return self.run_events_batch(
+            [sched_bits], conf_threshold, conf_search_limit)[0]

@@ -12,8 +12,9 @@ Two synthesis backends share the schedule:
   (sin is evaluated in float64 and rounded to float32, which is strictly
   more accurate than the reference's sinf and preserves the half-wave
   antisymmetry that makes integer-ratio signals decode with confidence=inf)
-- JAX path: one fused elementwise kernel / LUT-gather on TPU, used by the
-  library API and --benchmarks.
+- device path (backend name "jax", as the JAX package's CLI spells it):
+  the LUT gather or sine on the `device` the generator was given
+  (ops/tx_synth.py), the same samples as the NumPy path.
 
 Framing (start/data/stop bit keying, leader/trailer/sync preamble) mirrors
 reference src/minimodem.c:81-250.
@@ -28,6 +29,7 @@ import numpy as np
 
 from ..config import ModemConfig, TxOptions
 from ..sigio import SampleFormat, Stream
+from ..utils import device as _device
 from ..utils.cfloat import f32, f32_add, f32_div, f32_fmod1, f32_mul, lroundf_arr, trunc_i
 
 _TWO_PI_F32 = np.float32(np.float32(3.141592653589793) * np.float32(2.0))
@@ -79,8 +81,10 @@ class ToneGenerator:
     """
 
     def __init__(self, cfg_rate: int, fmt: SampleFormat,
-                 sin_table_len: int = 4096, tone_mag: float = 1.0):
+                 sin_table_len: int = 4096, tone_mag: float = 1.0,
+                 device=_device.DEFAULT):
         self.rate = cfg_rate
+        self.device = device             # where the "jax" backend runs
         self.format = fmt
         self.sin_table_len = sin_table_len
         self.tone_mag = f32(tone_mag)
@@ -159,9 +163,14 @@ class ToneGenerator:
         return np.where(silent, zero, out)
 
     def _synthesize_jax(self, sched: List[ToneSegment]) -> np.ndarray:
-        raise NotImplementedError(
-            "device TX synthesis is not ported to the PyTorch package yet "
-            "(ROADMAP queue 1 item 6); use the numpy synth backend")
+        from .tx_synth import synthesize_device
+        turns, silent = self._per_sample_turns(sched)
+        return synthesize_device(
+            turns, silent,
+            self.table_short, self.table_float,
+            self.sin_table_len, float(self.tone_mag),
+            self.format is SampleFormat.S16, _device.require(self.device),
+        ).cpu().numpy()
 
 
 # ======================================================================
@@ -205,12 +214,14 @@ class Transmitter:
     """
 
     def __init__(self, cfg: ModemConfig, opts: TxOptions, encoder,
-                 fmt: SampleFormat, synth_backend: str = "numpy"):
+                 fmt: SampleFormat, synth_backend: str = "numpy",
+                 device=_device.DEFAULT):
         self.cfg = cfg
         self.opts = opts
         self.encoder = encoder
         self.gen = ToneGenerator(cfg.sample_rate, fmt,
-                                 opts.sin_table_len, float(opts.amplitude))
+                                 opts.sin_table_len, float(opts.amplitude),
+                                 device)
         self.transmitting = 0
         self.synth_backend = synth_backend
         self._leader_f = (cfg.space_f if cfg.invert_start_stop else cfg.mark_f)

@@ -1,0 +1,337 @@
+"""Device-side FSK synthesis from a compact bit schedule.
+
+Counterpart of minimodem_tpu/ops/tx_device.py.  The host expands a byte
+stream into the transmit *bit* schedule (leader, sync preamble,
+start/data/stop bits, trailer — the keying logic of reference
+src/minimodem.c:81-250) as one uint8 array; the device turns bits into
+continuous-phase audio:
+
+    phase[k]   = frac(n_mark[<k] * inc_mark + n_space[<k] * inc_space)
+    sample[n]  = A * sin(2pi * (phase[bit(n)] + (n mod N)/wave_ns))
+
+The per-bit phase is computed in closed form from exclusive prefix counts
+of mark bits (exact integers in float64), so it does not depend on the
+order of the scan.  Fractional stop bits (Baudot 1.5 / TDD 2.0, reference
+src/minimodem.c:109-111) take the FRAME schedule path: every frame has
+the same static segment template, per-frame base phases come from one
+float64 prefix sum and the sample expansion is a static gather.
+
+The host half (schedules and static constants) is a copy of the JAX
+module's numpy code.  The device half is plain PyTorch on the bit
+tensors' device, batched over streams:
+
+- the per-sample phase `turns = phase + i * inv_wave` is rounded once, as
+  one fused multiply-add (the JAX package's XLA contracts it on the CPU),
+  by `fma_f32_exact` on any device and without a host sync;
+- sin is evaluated in float64 and rounded to float32, as the numpy TX
+  path does (ops/tx.py::_sin_f32): within one float32 ulp of XLA's sinf,
+  and the same on the CPU and the card.
+
+Used by the on-device loopback (ops/device_rx.py::DeviceLoopback: TX ->
+RX without audio crossing the host link).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import ModemConfig
+from ..utils.cfloat import f32_mul, trunc_i
+
+
+def uniform_bits_supported(cfg: ModemConfig) -> bool:
+    """True when every keyed tone segment is exactly bit_nsamples_tx long."""
+    return (float(cfg.nstopbits) == int(float(cfg.nstopbits))
+            and cfg.nstartbits == int(cfg.nstartbits))
+
+
+def tx_bit_schedule(data: bytes, cfg: ModemConfig, encoder,
+                    leader_bits_len: int = 2,
+                    trailer_bits_len: int = 2) -> np.ndarray:
+    """Expand a byte stream into the transmit bit schedule (uint8: 1=mark
+    tone, 0=space tone), mirroring the host transmitter's keying."""
+    assert uniform_bits_supported(cfg), "fractional stop bits not uniform"
+    nstop = int(float(cfg.nstopbits))
+    start_bit = 1 if cfg.invert_start_stop else 0
+    stop_bit = 1 - start_bit
+    leader_bit = 0 if cfg.invert_start_stop else 1
+
+    out: list = []
+
+    def frame(word: int, msb_first: bool):
+        out.extend([start_bit] * cfg.nstartbits)
+        for i in range(cfg.n_data_bits):
+            if msb_first:
+                bit = (word >> (cfg.n_data_bits - i - 1)) & 1
+            else:
+                bit = (word >> i) & 1
+            out.append(bit)
+        out.extend([stop_bit] * nstop)
+
+    # no leader tone when the frame has no start bits
+    # (reference: src/minimodem.c:948-950)
+    if cfg.nstartbits == 0:
+        leader_bits_len = 0
+    transmitting = 0
+    for byte in data:
+        words = encoder.encode(byte)
+        if transmitting == 0:
+            transmitting = 1
+            out.extend([leader_bit] * leader_bits_len)
+        if transmitting < 2:
+            transmitting = 2
+            for _ in range(cfg.do_tx_sync_bytes):
+                frame(cfg.sync_byte, False)
+        for w in words:
+            frame(w, cfg.msb_first)
+    if transmitting:
+        out.extend([1] * trailer_bits_len)  # trailer is plain mark tone
+    return np.asarray(out, np.uint8)
+
+
+def synth_params(cfg: ModemConfig):
+    """Static per-config synthesis constants."""
+    rate = float(cfg.sample_rate)
+    bit_ns = cfg.bit_nsamples_tx
+    wave_mark = rate / float(cfg.mark_f)
+    wave_space = rate / float(cfg.space_f)
+    return dict(
+        bit_ns=bit_ns,
+        inv_wave_mark=1.0 / wave_mark,
+        inv_wave_space=1.0 / wave_space,
+        inc_mark=bit_ns / wave_mark,
+        inc_space=bit_ns / wave_space,
+    )
+
+
+def tx_frame_schedule(data: bytes, cfg: ModemConfig, encoder,
+                      leader_bits_len: int = 2,
+                      trailer_bits_len: int = 2):
+    """Expand a byte stream into per-frame data-bit rows for the frame
+    synthesis path (any nstopbits, fractional included).
+
+    -> (frame_bits [F, n_data_bits] uint8 in transmit order — msb
+    resolution already applied, sync-preamble frames LSB-first exactly
+    like the reference's literal 0 at src/minimodem.c:216-221 —
+    leader_bits_len, trailer_bits_len)."""
+    rows: list = []
+
+    def frame(word: int, msb_first: bool):
+        rows.append([
+            (word >> (cfg.n_data_bits - i - 1)) & 1 if msb_first
+            else (word >> i) & 1
+            for i in range(cfg.n_data_bits)])
+
+    if cfg.nstartbits == 0:
+        leader_bits_len = 0  # reference: src/minimodem.c:948-950
+    transmitting = 0
+    for byte in data:
+        words = encoder.encode(byte)
+        if transmitting == 0:
+            transmitting = 1
+        if transmitting < 2:
+            transmitting = 2
+            for _ in range(cfg.do_tx_sync_bytes):
+                frame(cfg.sync_byte, False)
+        for w in words:
+            frame(w, cfg.msb_first)
+    if transmitting == 0:
+        leader_bits_len = trailer_bits_len = 0
+    return (np.asarray(rows, np.uint8).reshape(-1, cfg.n_data_bits),
+            leader_bits_len, trailer_bits_len)
+
+
+def frame_synth_params(cfg: ModemConfig):
+    """Static frame-template constants: segment lengths/tones and the
+    per-segment sample->segment maps."""
+    bit_ns = cfg.bit_nsamples_tx
+    nstart = int(cfg.nstartbits)
+    ndata = cfg.n_data_bits
+    stop_len = (trunc_i(f32_mul(bit_ns, cfg.nstopbits))
+                if float(cfg.nstopbits) > 0 else 0)
+    start_tone = 1 if cfg.invert_start_stop else 0
+    seg_len = []
+    seg_kind = []  # 0 = start const, 1..ndata = data bit, -1 = stop
+    if nstart > 0:
+        # the reference keys all start bits as ONE tone of
+        # trunc(bit_ns * nstart) samples (minimodem.c:96-97)
+        seg_len.append(trunc_i(f32_mul(bit_ns, float(nstart))))
+        seg_kind.append(0)
+    for i in range(ndata):
+        seg_len.append(bit_ns)
+        seg_kind.append(1 + i)
+    if stop_len > 0:
+        seg_len.append(stop_len)
+        seg_kind.append(-1)
+    seg_len = np.asarray(seg_len, np.int64)
+    frame_len = int(seg_len.sum())
+    seg_of = np.repeat(np.arange(len(seg_len), dtype=np.int32), seg_len)
+    seg_start = np.concatenate([[0], np.cumsum(seg_len)[:-1]])
+    off_in = (np.arange(frame_len, dtype=np.int64)
+              - seg_start[seg_of]).astype(np.float32)
+    rate = float(cfg.sample_rate)
+    return dict(
+        bit_ns=bit_ns, frame_len=frame_len,
+        seg_len=seg_len, seg_kind=np.asarray(seg_kind, np.int32),
+        seg_of=seg_of, off_in=off_in,
+        start_tone=start_tone, stop_tone=1 - start_tone,
+        inv_wave_mark=float(cfg.mark_f) / rate,
+        inv_wave_space=float(cfg.space_f) / rate,
+        leader_tone=0 if cfg.invert_start_stop else 1,
+    )
+
+
+# ======================================================================
+# device half
+# ======================================================================
+
+_TWO_PI = float(np.float32(2.0 * np.pi))
+
+
+def fma_f32_exact(a: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once (a fused multiply-add), elementwise
+    over broadcast float32 tensors, on any device and without a host sync.
+
+    a * b is exact in float64; the float64 sum s is then rounded to odd
+    (TwoSum gives its exact error; an inexact s with an even last bit
+    moves one ulp toward the exact value), whose float32 rounding is
+    correct (53 >= 24 + 2 bits).  ops/demod.py::fma_f32 does the same
+    repair only where it is needed, at the price of a host sync."""
+    a, b, c = (t.to(torch.float64) for t in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)                 # s + err == p + c
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.nextafter(s, torch.full_like(s, torch.inf).copysign(err))
+    return torch.where((err != 0) & even, away, s).to(torch.float32)
+
+
+_FRAME_CONSTS = {}
+
+
+def _frame_consts(p: dict, device: torch.device):
+    """frame_synth_params' arrays on the device (segment lengths [S] f64,
+    the sample -> segment map [frame_len] i64, the offset in the segment
+    [frame_len] f32), uploaded once per frame template and device, so a
+    dispatch makes no host-to-device copy of them."""
+    key = (p["seg_len"].tobytes(), str(device))
+    if key not in _FRAME_CONSTS:
+        _FRAME_CONSTS[key] = tuple(torch.from_numpy(a).to(device) for a in (
+            p["seg_len"].astype(np.float64), p["seg_of"].astype(np.int64),
+            p["off_in"]))
+    return _FRAME_CONSTS[key]
+
+
+def _sin_2pi_frac(turns: torch.Tensor) -> torch.Tensor:
+    """sin(float32(2pi) * (turns - floor(turns))) in float32, the sine
+    evaluated in float64 and rounded once."""
+    arg = (turns - torch.floor(turns)) * _TWO_PI
+    return torch.sin(arg.to(torch.float64)).to(torch.float32)
+
+
+def device_synthesize(bits: torch.Tensor, cfg: ModemConfig,
+                      amplitude: float = 1.0) -> torch.Tensor:
+    """bits: [B, b_pad] uint8 on the device -> samples [B, b_pad * bit_ns]
+    float32 on the same device (minimodem_tpu/ops/tx_device.py:260-288,
+    one row per stream)."""
+    p = synth_params(cfg)
+    bit_ns = p["bit_ns"]
+    dev = bits.device
+    b = bits.to(torch.float64)
+    # exclusive prefix counts of mark/space bits -> exact phase
+    n_mark_excl = torch.cumsum(b, dim=1) - b
+    idx = torch.arange(bits.shape[1], dtype=torch.float64, device=dev)
+    n_space_excl = idx - n_mark_excl
+    phase = (n_mark_excl * float(p["inc_mark"])
+             + n_space_excl * float(p["inc_space"]))
+    phase = phase - torch.floor(phase)
+
+    # per-sample phase within a bit stays < ~5 turns; float32 is plenty
+    phase32 = phase.to(torch.float32)
+    inv_wave = torch.full(bits.shape, float(np.float32(p["inv_wave_space"])),
+                          dtype=torch.float32, device=dev).masked_fill_(
+        bits == 1, float(np.float32(p["inv_wave_mark"])))
+    i = torch.arange(bit_ns, dtype=torch.float32, device=dev)
+    turns = fma_f32_exact(i, inv_wave[:, :, None], phase32[:, :, None])
+    samples = _sin_2pi_frac(turns) * float(np.float32(amplitude))
+    return samples.reshape(bits.shape[0], -1)
+
+
+def device_synthesize_frames(frame_bits: torch.Tensor, n_frames: torch.Tensor,
+                             cfg: ModemConfig, leader_bits_len: int,
+                             trailer_bits_len: int,
+                             amplitude: float = 1.0) -> torch.Tensor:
+    """frame_bits: [B, F_pad, n_data_bits] uint8 on the device (rows past
+    n_frames[b] are padding); n_frames: [B] int counts of real frames.
+    -> samples [B, leader + F_pad * frame_len + trailer] float32, each
+    stream's mark trailer placed after its n_frames[b] real frames
+    (padded-frame audio past it stays, as in the JAX package; the caller's
+    `total` bounds the scan) (minimodem_tpu/ops/tx_device.py:179-257)."""
+    p = frame_synth_params(cfg)
+    dev = frame_bits.device
+    nb, F = frame_bits.shape[:2]
+    frame_len = p["frame_len"]
+    iwm = float(np.float64(p["inv_wave_mark"]))
+    iws = float(np.float64(p["inv_wave_space"]))
+    f64 = torch.float64
+
+    # per-segment mark flags [B, F, S]: const for start/stop, data from bits
+    cols = []
+    for k in p["seg_kind"]:
+        if k == 0:
+            cols.append(torch.full((nb, F), float(p["start_tone"]),
+                                   dtype=f64, device=dev))
+        elif k == -1:
+            cols.append(torch.full((nb, F), float(p["stop_tone"]),
+                                   dtype=f64, device=dev))
+        else:
+            cols.append(frame_bits[:, :, k - 1].to(f64))
+    is_mark = torch.stack(cols, dim=2)                         # [B, F, S]
+    seg_lens, seg_of, off_in = _frame_consts(p, dev)
+    inv_wave = torch.full_like(is_mark, iws).masked_fill_(is_mark == 1, iwm)
+    seg_turns = seg_lens * inv_wave
+
+    # closed-form base phases: exclusive prefix over segments-in-frame
+    # and over frames (float64)
+    within = torch.cumsum(seg_turns, dim=2) - seg_turns        # [B, F, S]
+    per_frame = seg_turns.sum(dim=2)                           # [B, F]
+    base = torch.cumsum(per_frame, dim=1) - per_frame          # [B, F]
+
+    leader_len = leader_bits_len * p["bit_ns"]
+    trailer_len = trailer_bits_len * p["bit_ns"]
+    iw_leader = iwm if p["leader_tone"] == 1 else iws
+    leader_phase = float(np.float64(leader_len) * np.float64(iw_leader))
+
+    phase = leader_phase + base[:, :, None] + within           # [B, F, S]
+    phase = phase - torch.floor(phase)
+
+    ph = phase.to(torch.float32).index_select(2, seg_of)
+    iw = inv_wave.to(torch.float32).index_select(2, seg_of)
+    turns = fma_f32_exact(off_in, iw, ph)                      # [B, F, L]
+    frames_flat = _sin_2pi_frac(turns).reshape(nb, F * frame_len)
+
+    i_lead = torch.arange(leader_len, dtype=torch.float32, device=dev)
+    lead = _sin_2pi_frac(i_lead * float(np.float32(iw_leader)))
+
+    # trailer: mark tone starting at the phase after the last REAL frame
+    n_frames = n_frames.to(device=dev, dtype=torch.int64)
+    end = torch.gather(base + per_frame, 1,
+                       torch.clamp(n_frames - 1, min=0)[:, None])[:, 0]
+    base_at_end = torch.where(n_frames > 0, end, 0.0)
+    ph0 = leader_phase + base_at_end
+    ph0 = (ph0 - torch.floor(ph0)).to(torch.float32)
+    i_trail = torch.arange(trailer_len, dtype=torch.float32, device=dev)
+    trail = _sin_2pi_frac(fma_f32_exact(
+        i_trail, torch.full_like(i_trail, float(np.float32(iwm))),
+        ph0[:, None]))
+
+    out = torch.cat([lead.expand(nb, leader_len), frames_flat,
+                     torch.zeros((nb, trailer_len), dtype=torch.float32,
+                                 device=dev)], dim=1)
+    at = (leader_len + n_frames * frame_len)[:, None] + torch.arange(
+        trailer_len, device=dev)
+    out.scatter_(1, at, trail)
+    return out * float(np.float32(amplitude))

@@ -7,11 +7,12 @@ small Python protocol with a backend registry.  Data moves as NumPy arrays
 channel checks, the rxnoise fault-injection knob, rate getters — keeps the
 reference's semantics.
 
-A copy of minimodem_tpu/sigio/__init__.py with the file backend only:
+A copy of minimodem_tpu/sigio/__init__.py with two backends:
 ``file`` reads and writes 19 containers (WAV/FLAC/OGG/AU/RAW/AIFF/CAF/
 W64/RF64/WAVEX/NIST/IRCAM/PVF/HTK/AVR/VOC/SVX/MAT4/MAT5), deterministic
 output (tests depend on byte-identical TX, reference:
-tests/16-verify-tx-consistent).  The benchmark device and the live
+tests/16-verify-tx-consistent); ``benchmark`` is the null device that
+reports samples/sec (reference: src/simpleaudio-benchmark.c).  The live
 backends (PulseAudio, ALSA, sndio) are not ported yet (ROADMAP queue 1
 item 9).
 """
@@ -110,11 +111,14 @@ def open_stream(
 ) -> Stream:
     """Open an audio stream on the named backend.
 
-    Mirrors reference src/simpleaudio.c:36-138 dispatch; only the file
-    backend is ported so far."""
+    Mirrors reference src/simpleaudio.c:36-138 dispatch; the file and
+    benchmark backends are ported so far."""
     if backend == "file":
         from .wavfile import FileStream
         return FileStream(stream_name, direction, fmt, rate, channels)
+    if backend == "benchmark":
+        from .benchmark import BenchmarkStream
+        return BenchmarkStream(stream_name, direction, fmt, rate, channels)
     raise NotImplementedError(
         f"the {backend} audio backend is not ported to the PyTorch package "
         "yet (ROADMAP queue 1 item 9); use --file")

@@ -387,3 +387,179 @@ def test_host_engine_cuda_equals_cpu(cuda, case):
         assert "(rate perfect)" in outs[1][1]
     else:
         assert outs[1][0] == b"AT 1200AT 1800"
+
+
+# ---------------------------------------------------------------------
+# device TX synthesis and the on-device loopback
+# ---------------------------------------------------------------------
+
+def _turns_atol(seg_len, cfg) -> float:
+    """One float32 ulp of the largest per-sample turns of a seg_len-sample
+    tone segment, times 2pi, plus one ulp of a phase and of the sine (the
+    tolerance of tests/test_torch_tx_device.py): where a float64 prefix
+    sum of non-integers is summed in another order on the card, a phase
+    can round to the neighbouring float32."""
+    turns = seg_len * max(float(cfg.mark_f), float(cfg.space_f)) \
+        / cfg.sample_rate + 1.0
+    ulp = float(np.spacing(np.float32(turns)))
+    return 2 * np.pi * (ulp + 2.0 ** -24) + 2.0 ** -24
+
+
+def _samples_close(got, ref, atol, share=1.0):
+    diff = np.abs(got.cpu().numpy().astype(np.float64) - ref.numpy())
+    assert diff.max() <= atol, diff.max()
+    assert np.count_nonzero(diff) <= share * diff.size
+
+
+@pytest.mark.parametrize("shape", [(4, 4096), (1, 77824)])
+def test_device_synthesize_cuda_equals_cpu(cuda, shape):
+    """Flat schedules (B = 4, and one 64.3 s stream: 77160 bits padded to
+    77824): the phase is exact integer counts and one FMA on both devices,
+    so only the float64 sine's last rounding may differ (one float32
+    ulp)."""
+    from minimodem_tpu_torch.ops.tx_device import device_synthesize
+
+    cfg = _modem("1200").cfg
+    bits = torch.from_numpy(np.random.default_rng(shape[0]).integers(
+        0, 2, shape, dtype=np.uint8))
+    got = device_synthesize(bits.to(cuda), cfg, 0.8)
+    ref = device_synthesize(bits, cfg, 0.8)
+    assert got.shape == (shape[0], shape[1] * cfg.bit_nsamples_tx)
+    _samples_close(got, ref, 2.0 ** -23, share=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["rtty", "1200-1.5"])
+def test_device_synthesize_frames_cuda_equals_cpu(cuda, mode):
+    from minimodem_tpu_torch.ops.tx_device import (device_synthesize_frames,
+                                                   frame_synth_params)
+
+    m = _modem(mode.split("-")[0])
+    if mode == "1200-1.5":
+        m.cfg.nstopbits = np.float32(1.5)
+        m.cfg.finalize()
+    rng = np.random.default_rng(3)
+    bits = torch.from_numpy(rng.integers(
+        0, 2, (3, 512, m.cfg.n_data_bits), dtype=np.uint8))
+    nf = torch.tensor([512, 300, 0], dtype=torch.int32)
+    got = device_synthesize_frames(bits.to(cuda), nf.to(cuda), m.cfg, 2, 2)
+    ref = device_synthesize_frames(bits, nf, m.cfg, 2, 2)
+    # no bound on the share of differing samples: at Bell-202 a mark bit
+    # is a whole number of turns, so many frame phases are integers that
+    # the two prefix sums put on either side of 1.0 (0 + e or 1 - e),
+    # which moves the rounding of every sample of the segment
+    _samples_close(got, ref, _turns_atol(
+        max(frame_synth_params(m.cfg)["seg_len"]), m.cfg))
+
+
+def _events_close(got, ref):
+    """Types, integer lanes and bytes equal; NOCARRIER confidence and
+    amplitude totals within rtol 2e-6, atol 1e-5."""
+    assert len(got) == len(ref)
+    for (tt, tp, tb), (rt, rp, rb) in zip(got, ref):
+        np.testing.assert_array_equal(tt, rt)
+        np.testing.assert_array_equal(tb, rb)
+        nc = tt == 2
+        np.testing.assert_array_equal(tp[:, [0, 3, 4, 5]], rp[:, [0, 3, 4, 5]])
+        np.testing.assert_array_equal(tp[~nc], rp[~nc])
+        np.testing.assert_allclose(tp[nc][:, 1:3].view(np.float32),
+                                   rp[nc][:, 1:3].view(np.float32),
+                                   rtol=2e-6, atol=1e-5)
+
+
+def _payloads(n, k):
+    return [bytes(33 + (i * 7 + 13 * j) % 94 for i in range(k))
+            for j in range(n)]
+
+
+@pytest.mark.parametrize("mode", ["1200", "same", "1200-1.5"])
+def test_loopback_cuda_equals_cpu(cuda, mode):
+    """Two streams of 1-3 s, flat mode (1200, SAME) and frames mode
+    (Bell-202 with 1.5 stop bits): the loopback on the card against
+    device="cpu", event for event, every stream decoding its payload.
+    (At 1.5 stop bits the receiver, like the reference's, can lose a
+    byte in a few hundred; both packages lose the same one, so the frames
+    case keeps to 120 bytes.)"""
+    from minimodem_tpu_torch.bench import _render_ok
+    from minimodem_tpu_torch.codecs import Ascii8Codec
+    from minimodem_tpu_torch.ops.device_rx import DeviceLoopback
+    from minimodem_tpu_torch.ops.tx_device import (tx_bit_schedule,
+                                                   tx_frame_schedule)
+    from minimodem_tpu_torch.ops.fused_score import FusedScorer
+    from minimodem_tpu_torch.ops.mega_rx import MegaRx
+
+    m = _modem(mode.split("-")[0])
+    texts = _payloads(2, 300)
+    if mode == "1200-1.5":
+        m.cfg.nstopbits = np.float32(1.5)
+        m.cfg.finalize()
+        texts = _payloads(2, 120)
+    runs = []
+    for dev in ("cpu", cuda):
+        k1, k2 = FusedScorer.launches, MegaRx.launches
+        lb = DeviceLoopback(m.cfg, device=dev)
+        if mode == "1200-1.5":
+            rows = [tx_frame_schedule(t, m.cfg, Ascii8Codec()) for t in texts]
+            runs.append(lb.run_events_frames_batch([r[0] for r in rows],
+                                                   rows[0][1:]))
+        else:
+            runs.append(lb.run_events_batch(
+                [tx_bit_schedule(t, m.cfg, Ascii8Codec()) for t in texts]))
+        launched = (FusedScorer.launches - k1, MegaRx.launches - k2)
+    assert launched == (1, 1)
+    _events_close(runs[1], runs[0])
+    assert _render_ok(m.cfg, "ascii8", texts, runs[1])
+
+
+def test_loopback_rtty_frames_cuda_equals_cpu(cuda):
+    """rtty's fractional stop bits through build_loop at a frame pad of 7
+    on both devices (the plain CPU scorer of 1056-tap bits is slow)."""
+    from minimodem_tpu_torch.bench import _render_ok
+    from minimodem_tpu_torch.codecs import get_codec
+    from minimodem_tpu_torch.ops.device_rx import DeviceLoopback, _collect
+    from minimodem_tpu_torch.ops.tx_device import tx_frame_schedule
+
+    m = _modem("rtty")
+    texts = [b"RYRY", b"CQ 73"]
+    rows = [tx_frame_schedule(t, m.cfg, get_codec("baudot", usos=True))
+            for t in texts]
+    lt = rows[0][1:]
+    bits = np.zeros((2, 7, m.cfg.n_data_bits), np.uint8)
+    for i, r in enumerate(rows):
+        bits[i, :len(r[0])] = r[0]
+    nf = np.asarray([len(r[0]) for r in rows], np.int32)
+    runs = []
+    for dev in ("cpu", cuda):
+        lb = DeviceLoopback(m.cfg, device=dev)
+        totals = np.asarray([(lt[0] + lt[1]) * lb.bit_ns + n * lb.frame_len
+                             for n in nf], np.int32)
+        out = lb.build_loop(7, True, lt)(
+            torch.from_numpy(bits).to(dev), torch.from_numpy(totals).to(dev),
+            (THR, LIM), torch.from_numpy(nf).to(dev))
+        runs.append(_collect(out, 2))
+    _events_close(runs[1], runs[0])
+    assert _render_ok(m.cfg, "baudot", texts, runs[1])
+
+
+def test_loopback_128_short_streams(cuda):
+    """B = 128 streams of distinct payloads in one batch, every one
+    byte-exact; a depth-2 pipeline with prefetch and a chain of two give
+    the synchronous call's results."""
+    from minimodem_tpu_torch.bench import _render_ok
+    from minimodem_tpu_torch.codecs import Ascii8Codec
+    from minimodem_tpu_torch.ops.device_rx import DeviceLoopback
+    from minimodem_tpu_torch.ops.tx_device import tx_bit_schedule
+
+    cfg = _modem("1200").cfg
+    texts = _payloads(128, 150)
+    scheds = [tx_bit_schedule(t, cfg, Ascii8Codec()) for t in texts]
+    lb = DeviceLoopback(cfg, device=cuda)
+    sync = lb.run_events_batch(scheds)
+    assert _render_ok(cfg, "ascii8", texts, sync)
+    rev = scheds[::-1]
+    handles = [lb.dispatch_events_batch(s) for s in (scheds, rev, scheds)]
+    lb.prefetch_events_batch(handles[0])
+    res = [lb.collect_events_batch(h) for h in handles]
+    chained = lb.run_events_chain([rev, scheds])
+    for got in (res[0], res[1][::-1], res[2], chained[:128][::-1],
+                chained[128:]):
+        _events_close(got, sync)

@@ -165,7 +165,8 @@ def test_modem_api_matches_jax(tmp_path):
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports neither jax nor minimodem_tpu: with jax blocked in
-    sys.modules it still decodes a WAV on the CPU."""
+    sys.modules it still decodes a WAV and runs the on-device loopback on
+    the CPU."""
     path = str(tmp_path / "blocked.wav")
     text = b"no jax here\n"
     _write_wav(path, FskModem("1200").modulate(text), "pcm16")
@@ -173,6 +174,14 @@ def test_port_runs_with_jax_blocked(tmp_path):
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import minimodem_tpu_torch.cli as c\n"
+        "from minimodem_tpu_torch.codecs import Ascii8Codec\n"
+        "from minimodem_tpu_torch.models.modem import FskModem\n"
+        "from minimodem_tpu_torch.ops.device_rx import DeviceLoopback\n"
+        "from minimodem_tpu_torch.ops.tx_device import tx_bit_schedule\n"
+        "cfg = FskModem('1200', device='cpu').cfg\n"
+        "s = tx_bit_schedule(b'loopback', cfg, Ascii8Codec())\n"
+        "ev = DeviceLoopback(cfg, device='cpu').run_events_batch([s, s])\n"
+        "assert [e[2].tobytes() for e in ev] == [b'loopback'] * 2, ev\n"
         "rc = c.main(['--rx', '--file', sys.argv[1], '1200', "
         "'--device', 'cpu'])\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
@@ -225,13 +234,29 @@ def _first_use(entry):
         cls = DeviceReceiver if entry == "DeviceReceiver" else MegaReceiver
         r = cls(m.cfg)
         return r, lambda: r.run_events_batch(wav[None], [len(wav)], 1.5, 2.3)
+    if entry == "DeviceLoopback":
+        from minimodem_tpu_torch.ops.device_rx import DeviceLoopback
+        from minimodem_tpu_torch.ops.tx_device import tx_bit_schedule
+
+        lb = DeviceLoopback(m.cfg)
+        sched = tx_bit_schedule(b"x", m.cfg, get_codec("ascii8"))
+        return lb, lambda: lb.run_events_batch([sched])
+    if entry == "Transmitter":
+        from minimodem_tpu_torch.config import TxOptions
+        from minimodem_tpu_torch.ops.tx import Transmitter
+        from minimodem_tpu_torch.sigio import SampleFormat
+
+        tx = Transmitter(m.cfg, TxOptions(), get_codec("ascii8"),
+                         SampleFormat.FLOAT, "jax")
+        tx.send(ord("x"))
+        return tx, lambda: tx.drain(None)
     pr = PipelinedReceiver(m.cfg)
     return pr, lambda: next(pr.run(wav, 1.5, 2.3))
 
 
 @pytest.mark.parametrize("entry", [
     "FskModem", "Receiver", "ScoreProvider", "DemodScorer", "DeviceReceiver",
-    "PipelinedReceiver", "MegaReceiver"])
+    "PipelinedReceiver", "MegaReceiver", "DeviceLoopback", "Transmitter"])
 def test_entry_points_default_to_the_card(entry):
     """Every public entry point defaults to device="cuda", as the JAX
     package runs on its default accelerator; without a card the first use
@@ -249,7 +274,6 @@ def test_entry_points_default_to_the_card(entry):
 @pytest.mark.parametrize("flags,item", [
     (["-a"], "queue 1 item 9"),
     (["-a", "--engine", "device"], "queue 1 item 9"),
-    (["--benchmarks"], "queue 1 item 7"),
 ])
 def test_unported_features_name_their_roadmap_item(tmp_path, flags, item):
     path = str(tmp_path / "f.wav")
