@@ -17,8 +17,9 @@ one line each; any failure exits non-zero:
      a CPU copy of the same planes: identical events, bytes and carry;
      then 160 streams of differing totals, a carried-in state at a pos
      off the ring's window grid, rtty, NOAA SAME (the dual layout) and
-     the widest scan window K2 serves (4.5 baud, the ring of confidence
-     planes only) in both layouts;
+     4.5 baud (the ring of confidence planes only) in both layouts; and
+     K2 with its ring against K2 reading global memory (the shared-memory
+     budget patched to 0), in turns at B = 1 and B = 160;
   4. end to end: ~60 s of Bell-202 text (two segments with a carried
      state) decoded by `minimodem-tpu-torch --rx --file f.wav 1200`,
      in process (launch counts and plain-version calls recorded) and as
@@ -36,8 +37,9 @@ one line each; any failure exits non-zero:
      stderr equal to the device engine's;
   8. the float64 route: `1200 --samplerate 24000 -M 1200 -S 2400 --engine
      host` prints confidence=inf and (rate perfect), cuda == cpu;
-  9. `-a --engine host` on two bursts with a retune between them, cuda ==
-     cpu byte for byte;
+  9. `-a` on two bursts with a retune between them, --engine host (K3)
+     and --engine device (stop-on-overflow decodes through K1 and K2),
+     cuda and cpu, all four byte for byte;
  10. K3 and host-engine timings (warm decode walls, the host engine's
      split between chunk scoring and the Python state machine, a
      torch.profiler breakdown), each beside the card's name and power
@@ -59,7 +61,17 @@ one line each; any failure exits non-zero:
  14. a torch.profiler stage split of one warm B = 128 batch (synthesis,
      K1, K2, upload, collect; the device idle share; how soon the host's
      dispatch returned), its peak device memory, and K1 / K2 timed at
-     the loopback's shape beside their bounds.
+     the loopback's shape beside their bounds;
+ 15. the geometries K1 does not serve, at their full width, each a ~60 s
+     file decode by `minimodem-tpu-torch --rx --file` on the card (K2 and,
+     where it is the route, K3 launched; plain calls 0; stdout exact,
+     stderr equal to --device cpu's, within the stated tolerance of the
+     printed scores on the FFT route) and one DeviceReceiver batch of 16
+     streams with K2 held against its plain version on the card's own
+     planes: uic-train (wide records, the bits_hi plane, K3), the float64
+     geometry `1200 --samplerate 24000 -M 1200 -S 2400`, 20 baud (K3
+     past K1's shared memory), 1 baud (the FFT stage 1, no ring) and 2
+     baud with --sync-byte (the dual layout, no ring).
 
 The kernels' JSON summary (each entry with its launches on the device
 engine's file decode and, as loopback_launches, on the loopback), the
@@ -69,6 +81,7 @@ is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -383,8 +396,10 @@ def k2_compare(mega, planes, totals, thr, ci, cf, finalize):
     out_p = mega_rx_plain(mega.st, finalize, planes.cpu().numpy(),
                           totals.cpu().numpy(), thr, ci.cpu().numpy(),
                           cf.cpu().numpy())
-    ev_k = _collect(out_k[:4], b)
-    ev_p = _collect(tuple(torch.from_numpy(a) for a in out_p[:4]), b)
+    compact = mega.st.compact
+    ev_k = _collect(out_k[:4], b, compact)
+    ev_p = _collect(tuple(torch.from_numpy(a) for a in out_p[:4]), b,
+                    compact)
     same = (all(len(u) == len(v) and all(np.array_equal(s, t)
                                          for s, t in zip(u, v))
                 for u, v in zip(ev_k, ev_p))
@@ -394,35 +409,74 @@ def k2_compare(mega, planes, totals, thr, ci, cf, finalize):
     return same, out_k, out_p
 
 
-def fft_planes(cfg, x, t_total):
-    """Score planes [B, P, t_total] for a geometry whose bit span K1's
-    tiles cannot hold (very slow bauds): the FFT correlation and the
-    frame channels in PyTorch on the card, as the host engine scores
-    them.  Only K2 is under test on them."""
+@contextlib.contextmanager
+def no_ring():
+    """K2 without its ring: the shared-memory budget patched to 0, so
+    ops/mega_rx.py ring_geometry gives none and the warp reads its
+    candidates from global memory (the mode slow bauds take)."""
+    from minimodem_tpu_torch.ops import mega_rx
+
+    old = mega_rx.SMEM_MAX
+    mega_rx.SMEM_MAX = 0
+    try:
+        yield
+    finally:
+        mega_rx.SMEM_MAX = old
+
+
+def ring_ab(key, planes, totals, finalize) -> dict:
+    """K2 with its ring and without it, timed in turns (ring, none, ring,
+    none; the kernel's device time alone, torch.profiler) on the same
+    planes, and per wrapper call (CUDA events); the two runs' events,
+    bytes and carry must be identical.  -> {"ring": [ms, ms], "none":
+    [ms, ms], "ring_call", "none_call", stages}."""
     import numpy as np
     import torch
-    from minimodem_tpu_torch.ops.demod import (
-        correlate_fft, geometry_from_config, make_basis, score_frame_channels)
+    from minimodem_tpu_torch.ops.device_rx import _collect
+    from minimodem_tpu_torch.ops.mega_rx import MegaRx, MegaStatics
 
-    geo = geometry_from_config(cfg)
-    basis = torch.from_numpy(make_basis(geo, np.float32)).to(x.device)
-    corr = correlate_fft(x[:, :t_total + geo.halo], basis,
-                         t_total + geo.max_begin)
-    ch = score_frame_channels(corr, geo, t_total)
-    rows = ["conf_data", "ampl_data", "bits_lo"]
-    if tuple(geo.req_sync) != tuple(geo.req_data):
-        rows += ["conf_sync", "ampl_sync"]
-    return torch.stack([ch[r].view(torch.int32) for r in rows],
-                       dim=1).contiguous()
+    dev = planes.device
+    b, _, t_total = planes.shape
+    st = MegaStatics.build(key, t_total, False)
+    with_ring = MegaRx(st)
+    with no_ring():
+        without = MegaRx(st)
+    if without.ring.stages:
+        fail("the patched budget left K2 a ring")
+    tt = torch.tensor(totals, dtype=torch.int32, device=dev)
+    ci = torch.zeros((b, 8), dtype=torch.int32, device=dev)
+    cf = torch.zeros((b, 4), dtype=torch.float32, device=dev)
+    thr = (1.5, 2.3)
+    outs = []
+    for m in (with_ring, without):
+        out = m(planes, tt, thr, ci, cf, finalize)
+        outs.append([*(x for ev in _collect(out[:4], b, st.compact)
+                       for x in ev), out[4].cpu().numpy(),
+                     out[5].cpu().numpy().view(np.int32)])
+    if not (len(outs[0]) == len(outs[1]) and all(
+            np.array_equal(u, v) for u, v in zip(*outs))):
+        fail("K2 without its ring disagrees with K2 with it")
+    res = {"ring": [], "none": [], "ring_call": [], "none_call": [],
+           "stages": with_ring.ring.stages}
+    for _ in range(2):
+        for name, m in (("ring", with_ring), ("none", without)):
+            def call(m=m):
+                return m(planes, tt, thr, ci, cf, finalize)
+
+            res[name].append(kernel_device_ms(call, 5, "mega_rx_kernel"))
+            res[name + "_call"].append(cuda_ms(call, 5))
+    return res
 
 
 def k2_cases(audio, main_planes, main_total, dev) -> list:
     """K2 against its plain version beyond the main path's B = 1 segment:
     160 streams of differing totals (more CTAs than SMs); a carried-in
     state whose pos is not window-aligned; rtty through K1; NOAA SAME (the
-    dual layout, every plane in the ring); the widest scan window K2
-    serves (4.5 baud at 48 kHz, the confidence plane only in the ring),
-    in the single and the dual layout.  -> rows of the checks."""
+    dual layout, every plane in the ring); 4.5 baud at 48 kHz (planes
+    from make_score_packer's FFT route; the ring holds the confidence
+    plane only), in the single and the dual layout.  The B = 160 row also
+    times K2 with and without its ring (ring_ab).  -> rows of the
+    checks."""
     import numpy as np
     import torch
     from minimodem_tpu_torch.models.modem import FskModem
@@ -466,7 +520,7 @@ def k2_cases(audio, main_planes, main_total, dev) -> list:
                        - np.float32(0.5)) * np.float32(amp)).astype(
                            np.float32)
 
-    def k1_planes(cfg, streams, t_total):
+    def planes_of(cfg, streams, t_total):
         key = device_rx_key(cfg)
         packer, _ = make_score_packer_planes(key, t_total, "float32")
         x = np.zeros((len(streams), t_total + geo_from_key(key).halo),
@@ -481,9 +535,10 @@ def k2_cases(audio, main_planes, main_total, dev) -> list:
     totals = [120000 - 311 * i for i in range(160)]
     t_total = _round_up_pow2(max(totals) + cfg.nsamples_overscan + 1)
     noisy_audio = noisy(audio)
-    key, planes = k1_planes(cfg, [noisy_audio[9973 * i:][:n]
+    key, planes = planes_of(cfg, [noisy_audio[9973 * i:][:n]
                                   for i, n in enumerate(totals)], t_total)
     check("B=160 Bell-202", key, planes, totals, time_it=True)
+    rows[-1]["ab"] = ring_ab(key, planes, totals, True)
     del planes
 
     # a carried-in state: the main segment in two calls, split where the
@@ -507,10 +562,10 @@ def k2_cases(audio, main_planes, main_total, dev) -> list:
         wav = noisy(m.modulate(text), 0.3)
         n = len(wav)
         t_total = _round_up_pow2(n + m.cfg.nsamples_overscan + 1)
-        key, planes = k1_planes(m.cfg, [wav, wav], t_total)
+        key, planes = planes_of(m.cfg, [wav, wav], t_total)
         check(mode, key, planes, [n, n * 2 // 3])
 
-    # the widest scan window K2 serves: 4.5 baud at 48 kHz
+    # 4.5 baud at 48 kHz: a ring of the confidence plane(s) only
     for sync in (False, True):
         kw = {"do_rx_sync": True, "do_tx_sync_bytes": 2,
               "sync_byte": 0xAB} if sync else {}
@@ -520,10 +575,7 @@ def k2_cases(audio, main_planes, main_total, dev) -> list:
         wav = noisy(m.modulate(b"slow 4.5 baud"), 0.3)
         n = len(wav)
         t_total = _round_up_pow2(n + pre.cfg.nsamples_overscan + 1)
-        key = device_rx_key(pre.cfg)
-        x = np.zeros((2, t_total + geo_from_key(key).halo), np.float32)
-        x[:, :n] = wav
-        planes = fft_planes(pre.cfg, torch.from_numpy(x).to(dev), t_total)
+        key, planes = planes_of(pre.cfg, [wav, wav], t_total)
         check(f"4.5 baud{' dual' if sync else ''} (scan window "
               f"{max(MegaStatics.build(key, t_total, False).try_max)})",
               key, planes, [n, n * 3 // 4])
@@ -598,15 +650,18 @@ def perfect_check(tmp: str) -> None:
         fail("the float64 host-engine decode disagrees")
 
 
-def autodetect_check(dev) -> None:
-    """-a --engine host on two bursts with a retune between them (the
-    signal of tests/test_autodetect_device.py::test_rearm_retune)."""
+def autodetect_check(dev) -> dict:
+    """-a on two bursts with a retune between them (the signal of
+    tests/test_autodetect_device.py::test_rearm_retune): --engine host
+    (K3) and --engine device (each burst a stop-on-overflow decode through
+    K1 and K2), on the card and on the CPU, all four byte for byte.
+    -> the device engine's launches and warm wall on the card."""
     import numpy as np
+    import torch
     from minimodem_tpu_torch.codecs import get_codec
     from minimodem_tpu_torch.config import RxOptions
     from minimodem_tpu_torch.models.modem import FskModem
     from minimodem_tpu_torch.models.presets import bell_like
-    from minimodem_tpu_torch.ops.correlate import Correlator
     from minimodem_tpu_torch.rx.engine import Receiver
     from minimodem_tpu_torch.utils.cfloat import f32
 
@@ -620,22 +675,266 @@ def autodetect_check(dev) -> None:
     stream = np.concatenate([burst(1200, 2400, b"AT 1200"),
                              np.zeros(24000, np.float32),
                              burst(1800, 3000, b"AT 1800")])
-    outs = []
-    for d in (dev, "cpu"):
+
+    def run(d, engine):
         sink, err = io.BytesIO(), io.StringIO()
-        launches = Correlator.launches
         Receiver(bell_like(300, 24000).cfg,
                  RxOptions(carrier_autodetect_threshold=0.001),
                  get_codec("ascii8"), sink.write, err.write,
-                 device=d).run(stream.copy(), engine="host")
-        outs.append((sink.getvalue(), err.getvalue(),
-                     Correlator.launches - launches))
-    ok = outs[0][:2] == outs[1][:2] and outs[0][0] == b"AT 1200AT 1800"
-    phase(f"-a --engine host, retune between bursts: cuda == cpu "
-          f"{outs[0][:2] == outs[1][:2]}, stdout {outs[0][0]!r}, K3 "
-          f"launches on the card {outs[0][2]}; stderr: {outs[0][1]!r}")
-    if not ok or outs[0][2] < 1:
-        fail("-a --engine host disagrees between cuda and cpu")
+                 device=d).run(stream.copy(), engine=engine)
+        return sink.getvalue(), err.getvalue()
+
+    res = {}
+    outs = {}
+    for engine in ("host", "device"):
+        run(dev, engine)                              # warm-up
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        outs[engine, "cuda"] = run(dev, engine)
+        torch.cuda.synchronize()
+        res[engine] = {"wall_s": time.perf_counter() - t0,
+                       "launches": read_counts(counts)}
+        outs[engine, "cpu"] = run("cpu", engine)
+    ref = outs["host", "cuda"]
+    ok = (ref[0] == b"AT 1200AT 1800" and "@ 1800.0 Hz" in ref[1]
+          and all(o == ref for o in outs.values()))
+    for engine, r in res.items():
+        phase(f"-a --engine {engine}, retune between bursts: == --engine "
+              f"host on the card {outs[engine, 'cuda'] == ref}, cuda == cpu "
+              f"{outs[engine, 'cuda'] == outs[engine, 'cpu']}; launches "
+              f"{r['launches']}; warm wall {r['wall_s'] * 1e3:.1f} ms; "
+              f"stdout {outs[engine, 'cuda'][0]!r}, stderr "
+              f"{outs[engine, 'cuda'][1]!r}")
+    if not ok:
+        fail("-a disagrees between engines or between cuda and cpu")
+    if res["host"]["launches"]["correlate"] < 1:
+        fail("-a --engine host launched no K3")
+    lc = res["device"]["launches"]
+    if lc["mega_rx"] < 1 or lc["fused_score"] < 1 or lc["plain"]:
+        fail(f"-a --engine device launches {lc}")
+    return res["device"]
+
+
+KERNEL_COUNTS = ("fused_score", "mega_rx", "correlate", "correlate_batch")
+
+
+def reset_counts():
+    """Set every kernel's launch count and every plain version's call
+    count to 0 (-> the classes that hold them)."""
+    from minimodem_tpu_torch.ops.correlate import Correlator, correlate_plain
+    from minimodem_tpu_torch.ops.fused_score import (
+        FusedScorer, score_planes_plain)
+    from minimodem_tpu_torch.ops.mega_rx import MegaRx, mega_rx_plain
+
+    FusedScorer.launches = MegaRx.launches = 0
+    Correlator.launches = Correlator.batch_launches = 0
+    score_planes_plain.calls = mega_rx_plain.calls = 0
+    correlate_plain.calls = 0
+    return FusedScorer, MegaRx, Correlator, (score_planes_plain,
+                                             mega_rx_plain, correlate_plain)
+
+
+def read_counts(counts) -> dict:
+    fused, mega, corr, plains = counts
+    return {"fused_score": fused.launches, "mega_rx": mega.launches,
+            "correlate": corr.launches, "correlate_batch": corr.batch_launches,
+            "plain": sum(p.calls for p in plains)}
+
+
+def write_wav16(path: str, samples, rate: int) -> None:
+    """A mono PCM16 WAV of float samples."""
+    import struct
+
+    import numpy as np
+
+    s16 = np.clip(np.rint(np.asarray(samples, np.float64) * 32767.0),
+                  -32768, 32767).astype("<i2")
+    data = s16.tobytes()
+    fmt = struct.pack("<4sIHHIIHH", b"fmt ", 16, 1, 1, rate, 2 * rate, 2, 16)
+    body = fmt + struct.pack("<4sI", b"data", len(data)) + data
+    with open(path, "wb") as f:
+        f.write(struct.pack("<4sI4s", b"RIFF", 4 + len(body), b"WAVE") + body)
+
+
+def stderr_close(a: str, b: str, fft: bool) -> bool:
+    """Two runs' stderr: identical, or on the FFT route (stage-1
+    transforms sum in another order on each device) the same lines with
+    the NOCARRIER confidence= and ampl= values within rtol 5e-4 (plus the
+    last printed digit)."""
+    import re
+
+    import numpy as np
+
+    if a == b or not fft:
+        return a == b
+    num = re.compile(r"(confidence|ampl)=([0-9.]+|inf|nan)")
+    if num.sub(r"\1=#", a) != num.sub(r"\1=#", b):
+        return False
+    x = [float(v) for _, v in num.findall(a)]
+    y = [float(v) for _, v in num.findall(b)]
+    return bool(np.allclose(x, y, rtol=5e-4, atol=2e-3, equal_nan=True))
+
+
+def geometry_signal(name: str, rng):
+    """A geometry K1 does not serve (or a dual slow baud), ~60 s of its
+    audio and the text it carries.  -> (cfg, CLI args, float32 audio,
+    the expected stdout, its stage-1 route)."""
+    import numpy as np
+    from minimodem_tpu_torch.codecs import get_codec
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.models.presets import bell_like, uic
+    from minimodem_tpu_torch.ops.tx import ToneGenerator
+    from minimodem_tpu_torch.sigio import SampleFormat
+    from minimodem_tpu_torch.utils.cfloat import f32
+
+    if name == "uic-train":
+        # 12 bursts of 60 telegrams: the sync pattern 11110010, then 39
+        # seeded data bits, keyed as raw frame bits between mark leaders
+        cfg = uic("train").cfg
+        codec = get_codec("uic-train")
+        gen = ToneGenerator(cfg.sample_rate, SampleFormat.FLOAT)
+        text = b""
+        for _ in range(12):
+            bits = [1] * 16
+            for _ in range(60):
+                data = int(rng.integers(0, 1 << 39))
+                bits += [1, 1, 1, 1, 0, 0, 1, 0] + [(data >> i) & 1
+                                                    for i in range(39)]
+                text += codec.decode(data, 39)
+            for v in bits + [1] * 8:
+                gen.tone(float(cfg.mark_f if v else cfg.space_f),
+                         cfg.bit_nsamples_tx)
+            gen.tone(0.0, cfg.sample_rate // 5)            # silence
+        return cfg, ["uic-train"], gen.synthesize(), text, "K3"
+    kw, args, route = {}, [], "K3"
+    if name == "float64":
+        baud, rate = 1200, 24000
+        kw = {"mark_f": f32(1200), "space_f": f32(2400)}
+        args = ["--samplerate", "24000", "-M", "1200", "-S", "2400"]
+        text = b"".join(b"perfect line %04d\n" % i for i in range(420))
+        route = "float64 chain"
+    elif name == "20 baud":
+        baud, rate = 20, 48000
+        text = b"".join(b"twenty baud, line %d\n" % i for i in range(5))
+    elif name == "1 baud":
+        baud, rate, text, route = 1, 48000, b"slow\n", "FFT"
+    else:                                              # "2 baud dual"
+        baud, rate, text, route = 2, 48000, b"dual 2bd\n", "FFT"
+        kw = {"do_rx_sync": True, "do_tx_sync_bytes": 2, "sync_byte": 0xAB}
+        args = ["--sync-byte", "0xAB"]
+    pre = bell_like(baud, rate, **kw)
+    m = FskModem("1200", sample_rate=rate, device="cpu")
+    m.preset, m.cfg = pre, pre.cfg
+    wav = m.modulate(text)
+    if route == "FFT":
+        # a clean tone's noise band holds only the transform's round-off,
+        # so its confidence (an SNR) would be round-off's ratio, different
+        # on each device: uniform noise of amplitude 0.3 makes it the
+        # signal's
+        wav = wav + (rng.random(wav.size, dtype=np.float32)
+                     - np.float32(0.5)) * np.float32(0.3)
+    return pre.cfg, [str(baud), *args], wav, text, route
+
+
+GEOMETRIES = ("uic-train", "float64", "20 baud", "1 baud", "2 baud dual")
+
+
+def geometry_phase(name: str, tmp: str, dev) -> dict:
+    """One geometry the device engine serves since K2's wide, bits_hi and
+    no-ring modes and the scorer for what K1 does not serve: a ~60 s file
+    decode by `minimodem-tpu-torch --rx --file` on the card (launches
+    counted, plain calls 0; stdout exact) and on --device cpu (stderr
+    equal); then one DeviceReceiver batch of 16 streams, with K2 held
+    against its plain version on the card's own planes.  -> timings."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch.ops.device_rx import (
+        DeviceReceiver, _collect, _round_up_pow2, device_rx_key, geo_from_key,
+        make_score_packer_planes)
+    from minimodem_tpu_torch.ops.mega_rx import (
+        MegaRx, MegaStatics, mega_rx_plain)
+
+    rng = np.random.default_rng(SEED + 17 + GEOMETRIES.index(name))
+    cfg, args, wav, text, route = geometry_signal(name, rng)
+    fft = route == "FFT"
+    path = os.path.join(tmp, name.replace(" ", "_") + ".wav")
+    write_wav16(path, wav, cfg.sample_rate)
+    argv = ["--rx", "--file", path, *args, "--device", "cuda"]
+    run_cli_inprocess(argv)                            # warm-up
+    counts = reset_counts()
+    t0 = time.perf_counter()
+    rc, out, err = run_cli_inprocess(argv)
+    wall_s = time.perf_counter() - t0
+    launches = read_counts(counts)
+    rc_p, out_p, err_p = run_cli_subprocess(argv[:-1] + ["cpu"])
+    key = device_rx_key(cfg)
+    geo = geo_from_key(key)
+    k3 = launches["correlate"] + launches["correlate_batch"]
+    ok = (rc == rc_p == 0 and out == out_p == text
+          and stderr_close(err, err_p, fft) and launches["mega_rx"] >= 1
+          and launches["plain"] == 0 and (k3 >= 1) == (route == "K3"))
+    close = ("" if err == err_p else
+             f" (scores within the FFT route's tolerance: "
+             f"{stderr_close(err, err_p, fft)})")
+    phase(f"{name} ({' '.join(args)}; nb {geo.nb}, {geo.n_bits} frame bits, "
+          f"stage 1 {route}): {len(wav) / cfg.sample_rate:.1f} s file decode "
+          f"on the card, stdout exact {out == text}, == --device cpu "
+          f"{out == out_p}, stderr == --device cpu {err == err_p}{close}; "
+          f"launches {launches}; warm wall {wall_s * 1e3:.1f} ms; "
+          f"stderr: {err.strip()[:300]!r}")
+    if not ok:
+        fail(f"{name}: rc {rc}/{rc_p}, stdout {out[:80]!r} vs cpu "
+             f"{out_p[:80]!r}\n{err}\n{err_p}")
+
+    # one DeviceReceiver batch of 16 streams, each its own slice
+    b = 16
+    n = len(wav)
+    totals = [n - 2003 * i for i in range(b)]
+    x = np.zeros((b, n), np.float32)
+    for i, t in enumerate(totals):
+        x[i, :t] = wav[n - t:]
+    noise = (rng.random(x.shape, dtype=np.float32) - np.float32(0.5)) \
+        * np.float32(0.2)
+    x += noise
+    rx = DeviceReceiver(cfg, device=dev)
+    counts = reset_counts()
+    events, _ = rx.run_events_batch(x, totals, 1.5, 2.3)
+    batch_launches = read_counts(counts)
+    t_total = _round_up_pow2(max(totals) + cfg.nsamples_overscan + 1)
+    packer, _ = make_score_packer_planes(key, t_total, "float32")
+    xd = torch.zeros((b, t_total + geo.halo), dtype=torch.float32, device=dev)
+    xd[:, :n] = torch.from_numpy(x).to(dev)
+    planes = packer(xd)
+    mega = MegaRx(MegaStatics.build(key, t_total, False, rx.compact))
+    tt = torch.tensor(totals, dtype=torch.int32, device=dev)
+    ci = torch.zeros((b, 8), dtype=torch.int32, device=dev)
+    cf = torch.zeros((b, 4), dtype=torch.float32, device=dev)
+    same, out_k, _ = k2_compare(mega, planes, tt, (1.5, 2.3), ci, cf, True)
+    recv_same = all(
+        len(u) == len(v) and all(np.array_equal(s, t) for s, t in zip(u, v))
+        for u, v in zip(events, _collect(out_k[:4], b, rx.compact)))
+    r = {"name": name, "route": route, "wall_s": wall_s,
+         "audio_s": len(wav) / cfg.sample_rate, "launches": launches,
+         "batch_launches": batch_launches, "planes": list(planes.shape),
+         "searches": int(mega_rx_plain.searches.max()),
+         "score_ms": cuda_ms(lambda: packer(xd), 3),
+         "k2_ms": cuda_ms(
+             lambda: mega(planes, tt, (1.5, 2.3), ci, cf, True), 3)}
+    phase(f"{name} DeviceReceiver batch of {b} streams (planes "
+          f"{r['planes']}, {'compact' if rx.compact else 'wide records'}): "
+          f"K2 == plain on the card's planes {same}, DeviceReceiver == "
+          f"them {recv_same}; launches {batch_launches}; ring "
+          f"{'none (global reads)' if not mega.ring.stages else str(mega.ring.stages) + ' stages'}"
+          f"; score planes {r['score_ms']:.3f} ms, K2 {r['k2_ms']:.3f} ms per "
+          f"call (CUDA events; {r['searches']} searches in the longest "
+          f"stream)")
+    if not (same and recv_same) or batch_launches["mega_rx"] < 1 or \
+            batch_launches["plain"] or (route == "K3") != (
+                batch_launches["correlate_batch"] >= 1):
+        fail(f"{name}: the batch of {b} disagrees or missed its kernels")
+    del planes, xd, out_k
+    torch.cuda.empty_cache()
+    return r
 
 
 def host_engine_split(wav: str, device) -> str:
@@ -1086,6 +1385,7 @@ def main() -> int:
     k2_kernel_ms = kernel_device_ms(
         lambda: mega(planes, totals, thr, ci, cf, False), 5, "mega_rx_kernel")
     k2_rows = k2_cases(audio, planes, total_nf, dev)
+    ab1 = ring_ab(key, planes, [total_nf], False)
     for r in k2_rows:
         rg = r["ring"]
         phase(f"K2 {r['name']} vs plain at {r['shape']}: identical "
@@ -1150,7 +1450,10 @@ def main() -> int:
         host = host_engines(wav, text, err_cuda)
         host_split_line = host_engine_split(wav, dev)
         perfect_check(tmp)
-        autodetect_check(dev)
+        auto = autodetect_check(dev)
+
+        # ---- 15. the geometries K1 does not serve, and K2's new modes ----
+        geo_rows = [geometry_phase(g, tmp, dev) for g in GEOMETRIES]
 
     # ---- 5. timings ----
     phase(f"time K1 fused_score [1, {t_total + halo}] (tile "
@@ -1178,6 +1481,15 @@ def main() -> int:
     phase(f"profile of one warm decode (torch.profiler): {prof_line} "
           f"({card})")
     phase(f"host split of one warm decode: {split_line} ({card})")
+    ab160 = k2_rows[0]["ab"]
+    for name, ab in (("B=1 Bell-202 segment", ab1), ("B=160 Bell-202", ab160)):
+        phase(f"time K2 with its ring ({ab['stages']} stages) against the "
+              f"read from global memory, {name}, in turns: ring "
+              f"{', '.join(fmt_ms(v) for v in ab['ring'])}; no ring "
+              f"{', '.join(fmt_ms(v) for v in ab['none'])} (the kernel alone, "
+              f"torch.profiler); per call (CUDA events) ring "
+              f"{', '.join(fmt_ms(v) for v in ab['ring_call'])}, no ring "
+              f"{', '.join(fmt_ms(v) for v in ab['none_call'])} ({card})")
 
     # ---- 10. K3 and host-engine timings ----
     for name, r in k3.items():
@@ -1203,6 +1515,14 @@ def main() -> int:
               f"(torch.profiler): {r['profile']} ({card})")
     phase(f"host engine split of one warm decode: {host_split_line} "
           f"({card})")
+    for r in geo_rows:
+        phase(f"time {r['name']} (stage 1 {r['route']}): file decode warm "
+              f"wall {r['wall_s'] * 1e3:.1f} ms for {r['audio_s']:.1f} s "
+              f"audio = {r['audio_s'] / r['wall_s']:.1f} audio s per wall s; "
+              f"batch of 16 {r['planes']}: score planes {r['score_ms']:.3f} "
+              f"ms per call, K2 {r['k2_ms']:.3f} ms per call ({card})")
+    phase(f"time -a --engine device, retune between bursts: warm wall "
+          f"{auto['wall_s'] * 1e3:.1f} ms ({card})")
 
     # ---- 11. device TX on the card ----
     for r in device_tx_check(dev):
@@ -1315,6 +1635,7 @@ def main() -> int:
          "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None,
          "loopback_launches": lb_launches["fused_score"],
+         "autodetect_launches": auto["launches"]["fused_score"],
          "loopback_ms": lk["k1_ms"], "loopback_kernel_ms": lk["k1_kernel_ms"],
          "loopback_plain_ms": lk["k1_plain_ms"],
          "loopback_bound_ms": lk["k1_bound"][0],
@@ -1326,6 +1647,13 @@ def main() -> int:
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None,
          "loopback_launches": lb_launches["mega_rx"],
+         "autodetect_launches": auto["launches"]["mega_rx"],
+         "geometry_launches": {r["name"]: r["launches"]["mega_rx"]
+                               for r in geo_rows},
+         "geometry_batch_launches": {r["name"]: r["batch_launches"]["mega_rx"]
+                                     for r in geo_rows},
+         "no_ring_ms": {"B=1": ab1["none"], "B=160": ab160["none"]},
+         "ring_ms": {"B=1": ab1["ring"], "B=160": ab160["ring"]},
          "loopback_ms": lk["k2_ms"], "loopback_kernel_ms": lk["k2_kernel_ms"],
          "loopback_plain_ms": lk["k2_plain_ms"],
          "loopback_bound_ms": lk["k2_bound"][0],
@@ -1338,7 +1666,9 @@ def main() -> int:
          "bound_ms": k3a["bound_ms"], "bound_by": k3a["bound_by"],
          "library_ms": k3a["library_ms"],
          "library_device_ms": k3a["library_device_ms"],
-         "loopback_launches": 0},
+         "loopback_launches": 0,
+         "geometry_launches": {r["name"]: r["launches"]["correlate"]
+                               for r in geo_rows if r["route"] == "K3"}},
         {"name": "correlate_batch", "route": "cuda",
          "source": src + "correlate.cu",
          "replaces": "minimodem_tpu/ops/pallas_demod.py:138",
@@ -1348,7 +1678,10 @@ def main() -> int:
          "bound_ms": k3b["bound_ms"], "bound_by": k3b["bound_by"],
          "library_ms": k3b["library_ms"],
          "library_device_ms": k3b["library_device_ms"],
-         "loopback_launches": 0},
+         "loopback_launches": 0,
+         "geometry_batch_launches": {
+             r["name"]: r["batch_launches"]["correlate_batch"]
+             for r in geo_rows if r["route"] == "K3"}},
     ]}), flush=True)
     phase(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -13,9 +13,15 @@
 //   - the compact byte decode and the event records
 //     (pallas_rx.py:547-580, :676-723);
 //   - carry in and out, and the final NOCARRIER flush (:1073-1088).
+// It serves as well the modes of the JAX package's XLA receiver
+// (minimodem_tpu/ops/device_rx.py::_build_device_rx): wide records, one
+// per frame with its raw bits, the high word from a bits_hi plane for
+// frames of more than 32 bits (:779-802), and a stream that stops at every
+// no-confidence overflow with each record's scan position (:822-827).
 // The scalar skeleton is native/hostrx.cpp::mm_hostrx_run.  The event and
-// byte bounds and the loop condition are the TPU kernel's: max_events
-// (:287), b_cap (:292), n_ev < max_events - 2 (:733).
+// byte bounds (max_events, b_cap) are those of the JAX route that serves
+// the geometry (ops/mega_rx.py MegaStatics), and the loop runs while
+// n_ev < max_events - 2, as both JAX routes do.
 //
 // Bound: a chain of dependent decisions, not bytes or FLOPs.  A frame's
 // position depends on the previous frame's decision, so each stream is a
@@ -50,6 +56,10 @@
 //    and bits come from global memory; where not even those cover an
 //    advance (scan windows of thousands of samples) it takes the stages
 //    that fit, always more than the scan window.
+//    Where not even a scan window fits (scan windows of tens of thousands
+//    of samples, dual planes at slow bauds) there is no ring: no producer,
+//    and the warp reads its candidates straight from global memory
+//    (__ldcg, through L2).
 //  - A warp-parallel search.  Lane k holds candidate k's offset in a
 //    register, loaded once from shared memory (no kernel parameter is
 //    indexed at run time), and reads its confidence (and, with every
@@ -85,8 +95,10 @@ namespace {
 constexpr int kMax = 16;              // candidate table width (mega_rx.py)
 constexpr int kLanes = 32;
 constexpr int kMaxNoConfidence = 20;  // reference: src/minimodem.c:1290
+constexpr int kEvFrame = 0;
 constexpr int kEvCarrier = 1;
 constexpr int kEvNoCarrier = 2;
+constexpr int kEvAcquired = 1 << 8;   // a frame that acquired the carrier
 constexpr int kLogG = 10;             // ring window: G = 1024 samples
 constexpr int kG = 1 << kLogG;
 constexpr int kThreads = 2 * kLanes;  // warp 0 consumer, warp 1 producer
@@ -101,7 +113,7 @@ struct MegaParams {
         overscan, try_max0, try_max1, coarse_step0, coarse_step1,
         max_events, b_cap, rx_one, finalize, n_data_bits, data_shift,
         msb_first, sync_ok, sync_byte, dual, hold_all, window, stages,
-        smem_bytes;
+        smem_bytes, compact, stop_on_overflow, bits_hi;
     float conf_threshold, conf_search_limit;
     int cand_c[2][kMax];
     int cand_f[2][kMax];
@@ -112,6 +124,10 @@ struct MegaParams {
 namespace {
 
 using namespace sm90;
+
+// Where the search reads its candidates: a ring holding every plane, a
+// ring of the confidence plane(s) only, or global memory.
+enum Mode { kRingAll, kRingConf, kNoRing };
 
 // Dynamic shared memory: the ring [held][S * G] words, then full[S] and
 // empty[S] mbarriers, the four candidate tables [4][32] and the done
@@ -192,33 +208,40 @@ __device__ __forceinline__ Lane lane_offset(int t) {
 
 struct Pick {
     float c, a;
-    unsigned blo;
+    unsigned blo, bhi;
     int t;
 };
 
 // One search over a candidate table, all 32 lanes: lane k's offset t,
-// the ring's confidence (and ampl and bits, kAll) planes, the global
-// ampl and bits planes (read for the winner when the ring holds only
-// confidences).  Straight-line code: a lone warp on the SM pays every
-// branch in full, so every lane reads the ring (a stale or foreign word
-// where it is out of range, then zeroed) and the two rules are both
-// evaluated and selected.
-template <bool kAll>
+// the ring's confidence (and ampl and bits, kRingAll) planes, the global
+// planes (the confidence plane gc without a ring; ampl and bits read for
+// the winner unless the ring holds them; with kHi the bits_hi plane gh,
+// or null where the frame has <= 32 bits).  Straight-line code: a lone
+// warp on the SM pays every branch in full, so every lane reads the ring
+// (a stale or foreign word where it is out of range, then zeroed) and the
+// two rules are both evaluated and selected.
+template <Mode kMode, bool kHi>
 __device__ __forceinline__ Pick search(Lane t, int pos, int pr, int ring_len,
                                        int t_scored, const float* rc,
                                        const float* ra, const int* rb,
-                                       const float* ga, const int* gb,
+                                       const float* gc, const float* ga,
+                                       const int* gb, const int* gh,
                                        float limit, int lane) {
     const bool in = (unsigned)(pos + t.idx) < (unsigned)t_scored;
-    int o = pr + t.ring;                      // t < ring_len, pr < ring_len
-    o = o >= ring_len ? o - ring_len : o;
-    float cv = rc[o], av = 0.0f;
+    float cv = 0.0f, av = 0.0f;
     int bv = 0;
-    if (kAll) {
-        av = ra[o];
-        bv = rb[o];
+    if constexpr (kMode == kNoRing) {
+        cv = in ? __ldcg(gc + pos + t.idx) : 0.0f;
+    } else {
+        int o = pr + t.ring;                  // t < ring_len, pr < ring_len
+        o = o >= ring_len ? o - ring_len : o;
+        cv = rc[o];
+        if constexpr (kMode == kRingAll) {
+            av = ra[o];
+            bv = rb[o];
+        }
+        cv = in ? cv : 0.0f;
     }
-    cv = in ? cv : 0.0f;
     // the first cv >= limit (cv > 0) in table order; else the first of
     // the largest cv > 0.  One max-reduction does both: positive floats
     // order as their unsigned bits (at most 0x7f800000, +inf), and a hit
@@ -236,10 +259,13 @@ __device__ __forceinline__ Pick search(Lane t, int pos, int pr, int ring_len,
     f.a = __shfl_sync(kWarp, av, src);
     f.blo = (unsigned)__shfl_sync(kWarp, bv, src);
     const bool won = wk >= 0;
-    if (!kAll && won) {
+    if (kMode != kRingAll && won) {
         f.a = __ldcg(ga + pos + f.t);
         f.blo = (unsigned)__ldcg(gb + pos + f.t);
     }
+    f.bhi = 0u;
+    if constexpr (kHi)
+        f.bhi = gh != nullptr && won ? (unsigned)__ldcg(gh + pos + f.t) : 0u;
     f.c = won ? f.c : 0.0f;
     f.a = won ? f.a : 0.0f;
     f.blo = won ? f.blo : 0u;
@@ -254,13 +280,17 @@ __device__ __forceinline__ void put_bytes(unsigned char* byb, int base, int n,
 }
 
 __device__ __forceinline__ void store_event(int* rec, int p0, int p1, int p2,
-                                            int p3, int p4, int type) {
+                                            int p3, int p4, int p5, int type) {
     int4* r = reinterpret_cast<int4*>(rec);
     r[0] = make_int4(p0, p1, p2, p3);
-    r[1] = make_int4(p4, 0, type, 0);
+    r[1] = make_int4(p4, p5, type, 0);
 }
 
-template <bool kAll, bool kDual>
+// kWide: wide records (one per frame, its raw bits; stop-on-overflow and
+// bits_hi as the parameters say), else compact (data bytes and carrier
+// transitions): two instantiations, so the compact loop carries none of
+// the wide mode's selects.
+template <Mode kMode, bool kDual, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 mega_rx_kernel(const MegaParams p, const int* __restrict__ planes,
                const int* __restrict__ totals,
@@ -269,7 +299,9 @@ mega_rx_kernel(const MegaParams p, const int* __restrict__ planes,
                int* __restrict__ n_ev_out, unsigned char* __restrict__ bytes,
                int* __restrict__ n_by_out, int* __restrict__ ci_out,
                float* __restrict__ cf_out) {
-    constexpr int kHeld = kAll ? (kDual ? 5 : 3) : (kDual ? 2 : 1);
+    constexpr bool kAll = kMode == kRingAll;
+    constexpr int kHeld =
+        kMode == kNoRing ? 0 : (kAll ? (kDual ? 5 : 3) : (kDual ? 2 : 1));
     extern __shared__ __align__(128) unsigned char smem[];
     const int stages = p.stages;
     const int ring_len = stages * kG;
@@ -293,7 +325,7 @@ mega_rx_kernel(const MegaParams p, const int* __restrict__ planes,
     const int last = min(total - p.expect_nsamples + w_scan - 1, T - 1);
     const bool runs = stop == 0 && pos + p.expect_nsamples <= total;
     const int n_win = runs && last >= pos ? (last >> kLogG) - w_start + 1 : 0;
-    int slot0 = w_start % stages;
+    int slot0 = stages ? w_start % stages : 0;
     if (slot0 < 0) slot0 += stages;
 
     if (threadIdx.x == 0) {
@@ -319,9 +351,11 @@ mega_rx_kernel(const MegaParams p, const int* __restrict__ planes,
     __syncthreads();
 
     if (threadIdx.x >= kLanes) {
-        if (threadIdx.x == kLanes)
-            produce<kHeld, kAll>(row, T, w_start, n_win, stages, slot0, ring,
-                                 ring_len, full, empty, done);
+        if constexpr (kMode != kNoRing) {
+            if (threadIdx.x == kLanes)
+                produce<kHeld, kAll>(row, T, w_start, n_win, stages, slot0,
+                                     ring, ring_len, full, empty, done);
+        }
         return;
     }
 
@@ -338,10 +372,15 @@ mega_rx_kernel(const MegaParams p, const int* __restrict__ planes,
     const float* r_cs =
         kDual ? (kAll ? rf + 3 * ring_len : rf + ring_len) : r_cd;
     const float* r_as = kAll && kDual ? rf + 4 * ring_len : r_ad;
+    const float* g_cd = reinterpret_cast<const float*>(row);
     const float* g_ad = reinterpret_cast<const float*>(row + T);
     const int* g_bl = row + 2 * T;
+    const float* g_cs =
+        kDual ? reinterpret_cast<const float*>(row + 3 * (long long)T) : g_cd;
     const float* g_as =
         kDual ? reinterpret_cast<const float*>(row + 4 * (long long)T) : g_ad;
+    const int* g_bh =
+        p.bits_hi ? row + (long long)(p.n_planes - 1) * T : nullptr;
     int* evb = ev + (long long)b * p.max_events * 8;
     unsigned char* byb = bytes + (long long)b * p.b_cap;
 
@@ -357,8 +396,8 @@ mega_rx_kernel(const MegaParams p, const int* __restrict__ planes,
     const float thr = p.conf_threshold;
     const float lim = p.conf_search_limit;
     const float inf = __int_as_float(0x7f800000);
-    const unsigned data_mask = (1u << p.n_data_bits) - 1u;
-    int pr = pos % ring_len;                          // pos mod (S * G)
+    const unsigned data_mask = (1u << p.n_data_bits) - 1u;  // compact only
+    int pr = ring_len ? pos % ring_len : 0;           // pos mod (S * G)
     if (pr < 0) pr += ring_len;
     Cursor rel{0, slot0, 0, 0u};     // next window to release
     Cursor ready{0, slot0, 0, 0u};   // next window to wait for
@@ -380,7 +419,7 @@ mega_rx_kernel(const MegaParams p, const int* __restrict__ planes,
         const int tm = cw ? tm1 : tm0;
         // release the windows pos has passed, wait for those this frame
         // may read ([pos, pos + w_scan) covers both tables of both states)
-        if (pos >= rel_at || pos + w_scan > ready_to) {
+        if (kMode != kNoRing && (pos >= rel_at || pos + w_scan > ready_to)) {
             while (pos >= rel_at && rel.k < n_win) {
                 if (rel.k == ready.k) {
                     mbar_wait(full + ready.slot, ready.par);
@@ -399,11 +438,13 @@ mega_rx_kernel(const MegaParams p, const int* __restrict__ planes,
             }
         }
 
-        Pick f = search<kAll>(cw ? tc1 : tc0, pos, pr, ring_len, T,
-                              cw ? r_cd : r_cs, cw ? r_ad : r_as, r_bl,
-                              cw ? g_ad : g_as, g_bl, lim, lane);
+        Pick f = search<kMode, kWide>(cw ? tc1 : tc0, pos, pr, ring_len, T,
+                                      cw ? r_cd : r_cs, cw ? r_ad : r_as,
+                                      r_bl, cw ? g_cd : g_cs,
+                                      cw ? g_ad : g_as, g_bl, g_bh, lim,
+                                      lane);
         float c = f.c, a = f.a;
-        unsigned blo = f.blo;
+        unsigned blo = f.blo, bhi = f.bhi;
         int fs = f.t;
         const bool refine = c < __fmul_rn(peak, 0.75f);
         peak = refine ? 0.0f : peak;
@@ -417,23 +458,42 @@ mega_rx_kernel(const MegaParams p, const int* __restrict__ planes,
         const int try_step = cw ? p.coarse_step1 : p.coarse_step0;
         if (got && (refine || acquired) && c < inf && try_step > 1) {
             // fine rescan: same window, data expect, no early exit
-            Pick f2 = search<kAll>(cw ? tf1 : tf0, pos, pr, ring_len, T, r_cd,
-                                   r_ad, r_bl, g_ad, g_bl, inf, lane);
+            Pick f2 = search<kMode, kWide>(cw ? tf1 : tf0, pos, pr, ring_len,
+                                           T, r_cd, r_ad, r_bl, g_cd, g_ad,
+                                           g_bl, g_bh, inf, lane);
             if (f2.c > c) {           // confidence itself is not updated
                 a = f2.a;
                 blo = f2.blo;
+                bhi = f2.bhi;
                 fs = f2.t;
             }
         }
         // the NOCARRIER event reports the stats before this frame, which
-        // leaves them unchanged (drop_report implies !got)
-        const bool event = drop_report || acquired;
-        if (event && lane == 0)
+        // leaves them unchanged (drop_report implies !got).  Compact: the
+        // carrier transitions, at their byte positions.  Wide: every frame
+        // with its raw bits, and lane 5 the scan position where the stream
+        // stops on overflow.
+        const bool event = drop_report || (kWide ? got : acquired);
+        if constexpr (kWide) {
+            const int at = p.stop_on_overflow ? pos : 0;
+            if (event && lane == 0) {
+                if (drop_report)
+                    store_event(evb + n_ev * 8, nframes,
+                                __float_as_int(conf_tot),
+                                __float_as_int(ampl_tot), carrier_ns, 0, at,
+                                kEvNoCarrier);
+                else
+                    store_event(evb + n_ev * 8, (int)blo, (int)bhi,
+                                __float_as_int(c), __float_as_int(a), fs, at,
+                                kEvFrame | (acquired ? kEvAcquired : 0));
+            }
+        } else if (event && lane == 0) {
             store_event(evb + n_ev * 8, drop_report ? nframes : n_by,
                         drop_report ? __float_as_int(conf_tot) : 0,
                         drop_report ? __float_as_int(ampl_tot) : 0,
                         drop_report ? carrier_ns : 0, drop_report ? n_by : 0,
-                        drop_report ? kEvNoCarrier : kEvCarrier);
+                        0, drop_report ? kEvNoCarrier : kEvCarrier);
+        }
         n_ev += event;
         // x / 2 and x * 0.5 round the same real number: bit-identical
         const float track_got = __fmul_rn(__fadd_rn(track, a), 0.5f);
@@ -447,19 +507,24 @@ mega_rx_kernel(const MegaParams p, const int* __restrict__ planes,
         ampl_tot = got ? ampl_got : ampl_tot;
         nframes += got;
         const int advance = got ? fs + step : tm;
-        // frame bits -> data byte (minimodem.c:1414-1439); lane n_by % 32
-        // keeps it, and a full run of 32 is stored at once
-        unsigned word = (blo >> p.data_shift) & data_mask;
-        if (p.msb_first) word = __brev(word) >> (32 - p.n_data_bits);
-        const bool keep = got && !(p.sync_ok && word == (unsigned)p.sync_byte);
-        mine = keep && lane == (n_by & (kLanes - 1)) ? (int)word : mine;
-        n_by += keep;                 // the host raises past b_cap
-        if (keep && (n_by & (kLanes - 1)) == 0)
-            put_bytes(byb, n_by - kLanes, kLanes, mine, lane, p.b_cap);
+        if constexpr (!kWide) {
+            // frame bits -> data byte (minimodem.c:1414-1439); lane n_by %
+            // 32 keeps it, and a full run of 32 is stored at once
+            unsigned word = (blo >> p.data_shift) & data_mask;
+            if (p.msb_first) word = __brev(word) >> (32 - p.n_data_bits);
+            const bool keep =
+                got && !(p.sync_ok && word == (unsigned)p.sync_byte);
+            mine = keep && lane == (n_by & (kLanes - 1)) ? (int)word : mine;
+            n_by += keep;             // the host raises past b_cap
+            if (keep && (n_by & (kLanes - 1)) == 0)
+                put_bytes(byb, n_by - kLanes, kLanes, mine, lane, p.b_cap);
+        }
         pos += advance;
-        pr += advance;
-        pr = pr >= ring_len ? pr - ring_len : pr;
-        if (pr >= ring_len) pr %= ring_len;   // an advance beyond the ring
+        if constexpr (kMode != kNoRing) {
+            pr += advance;
+            pr = pr >= ring_len ? pr - ring_len : pr;
+            if (pr >= ring_len) pr %= ring_len;   // an advance beyond the ring
+        }
         carrier = got ? 1 : (drop ? 0 : cw);
         // a reported drop resets the stats (a silent one leaves them)
         track = drop_report ? 0.0f : track;
@@ -468,6 +533,9 @@ mega_rx_kernel(const MegaParams p, const int* __restrict__ planes,
         nframes = drop_report ? 0 : nframes;
         carrier_ns = drop_report ? 0 : carrier_ns;
         stop = drop_report && p.rx_one ? 1 : stop;
+        // -a re-arms its carrier detection at every overflow, reported or
+        // not (minimodem.c:1295-1297): the host retunes there
+        if constexpr (kWide) stop = drop && p.stop_on_overflow ? 1 : stop;
     }
     put_bytes(byb, n_by & ~(kLanes - 1), n_by & (kLanes - 1), mine, lane,
               p.b_cap);
@@ -482,19 +550,20 @@ mega_rx_kernel(const MegaParams p, const int* __restrict__ planes,
     fo[0] = track; fo[1] = peak; fo[2] = conf_tot; fo[3] = ampl_tot;
     if (p.finalize && carrier) {
         store_event(evb + n_ev * 8, nframes, __float_as_int(conf_tot),
-                    __float_as_int(ampl_tot), carrier_ns, n_by, kEvNoCarrier);
+                    __float_as_int(ampl_tot), carrier_ns, n_by, 0,
+                    kEvNoCarrier);
         ++n_ev;
     }
     n_ev_out[b] = n_ev;
     n_by_out[b] = n_by;
 }
 
-template <bool kAll, bool kDual>
+template <Mode kMode, bool kDual, bool kWide>
 int launch(const MegaParams& p, const int* planes, const int* totals,
            const int* carry_i, const float* carry_f, int* ev, int* n_ev,
            unsigned char* bytes, int* n_by, int* ci_out, float* cf_out,
            cudaStream_t stream) {
-    auto kernel = mega_rx_kernel<kAll, kDual>;
+    auto kernel = mega_rx_kernel<kMode, kDual, kWide>;
     if (p.smem_bytes > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
@@ -514,9 +583,12 @@ extern "C" int mm_mega_rx(const void* params, const void* planes,
                           void* bytes, void* n_bytes, void* ci_out,
                           void* cf_out, void* stream) {
     const MegaParams p = *static_cast<const MegaParams*>(params);
-    const int held = p.hold_all ? p.n_planes : (p.dual ? 2 : 1);
-    if (p.window != kG || p.n_planes != (p.dual ? 5 : 3) || p.stages < 2 ||
-        p.t_scored % 4 != 0 || p.smem_bytes != smem_bytes(held, p.stages))
+    const int base = p.dual ? 5 : 3;
+    const int held = p.stages == 0 ? 0 : (p.hold_all ? base : (p.dual ? 2 : 1));
+    if (p.window != kG || p.n_planes != base + (p.bits_hi != 0) ||
+        p.stages == 1 || p.stages < 0 || (p.stages == 0 && p.hold_all) ||
+        p.t_scored % 4 != 0 || p.smem_bytes != smem_bytes(held, p.stages) ||
+        (p.compact && (p.n_data_bits > 8 || p.stop_on_overflow)))
         return (int)cudaErrorInvalidValue;
     auto args = [&](auto fn) {
         return fn(p, static_cast<const int*>(planes),
@@ -528,7 +600,23 @@ extern "C" int mm_mega_rx(const void* params, const void* planes,
                   static_cast<float*>(cf_out),
                   static_cast<cudaStream_t>(stream));
     };
+    // Mode x layout x output: the ring's planes, single or dual, compact
+    // or wide
+    auto by_output = [&](auto compact_fn, auto wide_fn) {
+        return p.compact ? args(compact_fn) : args(wide_fn);
+    };
+    if (p.stages == 0)
+        return p.dual ? by_output(launch<kNoRing, true, false>,
+                                  launch<kNoRing, true, true>)
+                      : by_output(launch<kNoRing, false, false>,
+                                  launch<kNoRing, false, true>);
     if (p.hold_all)
-        return p.dual ? args(launch<true, true>) : args(launch<true, false>);
-    return p.dual ? args(launch<false, true>) : args(launch<false, false>);
+        return p.dual ? by_output(launch<kRingAll, true, false>,
+                                  launch<kRingAll, true, true>)
+                      : by_output(launch<kRingAll, false, false>,
+                                  launch<kRingAll, false, true>);
+    return p.dual ? by_output(launch<kRingConf, true, false>,
+                              launch<kRingConf, true, true>)
+                  : by_output(launch<kRingConf, false, false>,
+                              launch<kRingConf, false, true>);
 }

@@ -159,6 +159,19 @@ _F32_TIE = 1 << 28
 _F32_TINY = 2.0 ** -125          # below it float32 keeps fewer bits
 
 
+def _round_once(s, p, c, idx):
+    """Repair s = p + c (float64) at the indices idx so that its float32
+    rounding is the correctly rounded p + c: the sum rounded to odd
+    (TwoSum gives its exact error; an inexact even result moves one ulp
+    toward the exact value)."""
+    sh = s[idx]
+    bb = sh - p
+    err = (p - (sh - bb)) + (c - bb)                # sh + err == p + c
+    even = (sh.view(torch.int64) & 1) == 0
+    away = torch.nextafter(sh, torch.where(err > 0, torch.inf, -torch.inf))
+    s[idx] = torch.where((err != 0) & even, away, sh)
+
+
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 fused multiply-add a * b + c, elementwise.
 
@@ -166,23 +179,24 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     in float64 and s = a * b + c rounds once there.  Rounding s to float32
     is then correct unless s landed exactly on a float32 tie (float64
     rounding never carries the sum across one) or in float32's subnormal
-    range.  Those few elements are redone with the sum rounded to odd
-    (TwoSum gives its exact error; an inexact even result moves one ulp
-    toward the exact value), whose float32 rounding is correct
-    (53 >= 24 + 2 bits): the same bits as CUDA's __fmaf_rn."""
+    range.  Those few elements are redone with the sum rounded to odd,
+    whose float32 rounding is correct (53 >= 24 + 2 bits): the same bits
+    as CUDA's __fmaf_rn."""
     p = a * b
     s = p + c
     hard = ((s.view(torch.int64) & _LOW29) == _F32_TIE) | (
         (s.abs() < _F32_TINY) & (s != 0))
     idx = hard.nonzero(as_tuple=True)
     if idx[0].numel():
-        ph, ch, sh = p[idx], c.expand_as(s)[idx], s[idx]
-        bb = sh - ph
-        err = (ph - (sh - bb)) + (ch - bb)              # sh + err == ph + ch
-        even = (sh.view(torch.int64) & 1) == 0
-        away = torch.nextafter(sh, torch.where(err > 0, torch.inf, -torch.inf))
-        s[idx] = torch.where((err != 0) & even, away, sh)
+        _round_once(s, p.expand_as(s)[idx], c.expand_as(s)[idx], idx)
     return s.to(torch.float32)
+
+
+def _no_tiny(t: torch.Tensor) -> bool:
+    """Whether every nonzero |t| is at least 2^-40."""
+    a = t.abs()
+    a = a[a > 0]
+    return a.numel() == 0 or float(a.min()) >= 2.0 ** -40
 
 
 def correlate(x: torch.Tensor, basis: torch.Tensor, s_len: int) -> torch.Tensor:
@@ -190,18 +204,42 @@ def correlate(x: torch.Tensor, basis: torch.Tensor, s_len: int) -> torch.Tensor:
 
     A float32 chain of fused multiply-adds in ascending j, the order of
     the JAX package's _correlate_direct (minimodem_tpu/ops/demod.py:
-    165-183), which XLA compiles to exactly this chain on the CPU.
+    165-183), which XLA compiles to exactly this chain on the CPU.  Each
+    step is fma_f32 done in place in preallocated buffers (the product of
+    two float32 values is exact in float64, so addcmul rounds once, fused
+    or not).  Where no
+    nonzero input is below 2^-40 in magnitude, every product and partial
+    sum is a multiple of 2^-126, so no sum is a float32 subnormal and only
+    the tie test remains.
     x: [..., >= s_len + nb - 1] float32, basis: [4, nb] float32
     -> [..., 4, s_len] float32."""
     nb = basis.shape[1]
     x64 = x.to(torch.float64)
     b64 = basis.to(torch.float64)
-    acc = torch.zeros(x.shape[:-1] + (4, s_len), dtype=torch.float32,
-                      device=x.device)
+    shape = x.shape[:-1] + (4, s_len)
+    dev = x.device
+    acc = torch.zeros(shape, dtype=torch.float64, device=dev)  # f32 values
+    acc32 = torch.empty(shape, dtype=torch.float32, device=dev)
+    s = torch.empty(shape, dtype=torch.float64, device=dev)
+    low = s.view(torch.int32)[..., ::2]          # low words (little-endian)
+    low29 = torch.empty(shape, dtype=torch.int32, device=dev)
+    hard = torch.empty(shape, dtype=torch.bool, device=dev)
+    check_tiny = not (_no_tiny(x) and _no_tiny(basis))
     for j in range(nb):
-        acc = fma_f32(b64[:, j, None], x64[..., None, j:j + s_len],
-                      acc.to(torch.float64))
-    return acc
+        xj, bj = x64[..., None, j:j + s_len], b64[:, j, None]
+        # exact product, one float64 rounding of the sum
+        torch.addcmul(acc, xj, bj, out=s)
+        torch.bitwise_and(low, _LOW29, out=low29)
+        torch.eq(low29, _F32_TIE, out=hard)
+        if check_tiny:
+            hard |= (s.abs() < _F32_TINY) & (s != 0)
+        idx = hard.nonzero(as_tuple=True)
+        if idx[0].numel():
+            _round_once(s, xj.expand(shape)[idx] * bj.expand(shape)[idx],
+                        acc[idx], idx)
+        acc32.copy_(s)
+        acc.copy_(acc32)
+    return acc32
 
 
 def correlate_direct(x: torch.Tensor, basis: torch.Tensor,
@@ -283,12 +321,17 @@ def score_frame_channels(corr: torch.Tensor, geo: DemodGeometry,
     # float32 after the scaling as the JAX package does
     # (minimodem_tpu/ops/demod.py:227-229): every later decision and sum
     # is float32 whatever the correlation's type
-    mag_mark = (torch.sqrt(c[..., 0, :] * c[..., 0, :]
-                           + c[..., 1, :] * c[..., 1, :]) * scal
-                ).to(torch.float32)
-    mag_space = (torch.sqrt(c[..., 2, :] * c[..., 2, :]
-                            + c[..., 3, :] * c[..., 3, :]) * scal
-                 ).to(torch.float32)
+    def magnitude(re, im):
+        sq = re * re + im * im
+        if sq.dtype == torch.float32:
+            # float32: the square root in float64 rounded once, which is
+            # the correctly rounded sqrtf on any device (a vectorized CPU
+            # sqrtf of a PyTorch build may be an ulp off it)
+            return torch.sqrt(sq.to(torch.float64)).to(torch.float32) * scal
+        return (torch.sqrt(sq) * scal).to(torch.float32)
+
+    mag_mark = magnitude(c[..., 0, :], c[..., 1, :])
+    mag_space = magnitude(c[..., 2, :], c[..., 3, :])
     bit = mag_mark > mag_space                       # fsk.c:161 strict
     sig = torch.where(bit, mag_mark, mag_space)
     noise = torch.where(bit, mag_space, mag_mark)

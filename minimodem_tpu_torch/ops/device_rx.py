@@ -1,27 +1,28 @@
-"""Device-resident receiver: audio in, compact events and bytes out.
+"""Device-resident receiver: audio in, events and bytes out.
 
-Counterpart of minimodem_tpu/ops/device_rx.py, megakernel route only.
-One call runs the whole receive pipeline on the device:
+Counterpart of minimodem_tpu/ops/device_rx.py.  One call runs the whole
+receive pipeline on the device:
 
   wire   : the host uploads int16 / float32 / raw u8 (G.711, PCM8) samples
            and the device normalizes them (normalize_input, expand_wire)
-  K1     : the fused scorer -> per-offset score planes (ops/fused_score.py)
+  score  : per-offset score planes, by geometry alone: K1, the fused
+           scorer (ops/fused_score.py), where it serves the geometry, else
+           make_score_packer (stage 1 through K3, the FFT or the float64
+           chain, then the frame channels)
   K2     : the carrier state machine over the planes -> events, bytes and
-           the streaming carry (ops/mega_rx.py)
+           the streaming carry (ops/mega_rx.py), in compact mode (data
+           bytes, carrier transitions) or with wide records (one per
+           frame, its raw bits), optionally stopping at every
+           no-confidence overflow (the device -a loop)
 
-Only the event log (carrier transitions) and the decoded bytes return to
-the host, where rx/engine.py renders them.  Decisions replay the
-reference's sequential receive loop (reference: src/minimodem.c:1137-1463,
-src/fsk.c:449-538) and match the JAX package event for event.
+Only the event log and the decoded bytes return to the host, where
+rx/engine.py renders them.  Decisions replay the reference's sequential
+receive loop (reference: src/minimodem.c:1137-1463, src/fsk.c:449-538)
+and match the JAX package event for event.
 
-DeviceLoopback puts device synthesis (ops/tx_device.py) in front of K1
-and K2: bit schedules go up, events come back, and the audio never
+DeviceLoopback puts device synthesis (ops/tx_device.py) in front of the
+scorer and K2: bit schedules go up, events come back, and the audio never
 crosses the host link.
-
-Geometries the megakernel does not serve (float64 scoring, more than 8
-data bits, more than 32 frame bits, scan windows over 16384 samples)
-raise NotImplementedError: the JAX package's XLA while_loop receiver is
-not ported (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -226,13 +227,76 @@ def _round_up_pow2(n: int, floor: int = 1 << 14) -> int:
     return v
 
 
+def plane_names(geo: DemodGeometry) -> list:
+    """The channels of the score planes K2 reads, in row order: conf_data,
+    ampl_data, bits_lo; then conf_sync, ampl_sync where the sync expect
+    string differs from the data one (the dual layout); then bits_hi, the
+    frame bits' high word, where a frame has more than 32 bits."""
+    names = ["conf_data", "ampl_data", "bits_lo"]
+    if tuple(geo.req_sync) != tuple(geo.req_data):
+        names += ["conf_sync", "ampl_sync"]
+    if geo.n_bits > 32:
+        names.append("bits_hi")
+    return names
+
+
+# offsets scored per tile of make_score_packer (the JAX package's T_TILE)
+SCORE_TILE = 1 << 18
+
+
+def make_score_packer(cfg_key, t_total: int, input_dtype: str):
+    """fn x[B, t_total + halo] (wire dtype) -> score planes
+    [B, len(plane_names), t_total] int32, for the geometries K1 does not serve
+    (minimodem_tpu/ops/device_rx.py:244-309): stage 1 by the route the
+    geometry needs (ops/demod.py correlator_for: K3 for float32 filters of
+    up to 4096 taps, the FFT beyond, the float64 chain for float64
+    geometries), then the frame channels (score_frame_channels, PyTorch
+    ops as in the JAX package, whose channel math is XLA code outside any
+    kernel).  Scores tiles of min(t_total, SCORE_TILE) offsets, so the
+    per-bit planes exist only at tile size; a ragged last tile is scored
+    over zero padding and cut."""
+    from .demod import correlator_for, make_basis, score_frame_channels
+
+    geo = geo_from_key(cfg_key)
+    stage1 = correlator_for(
+        geo, make_basis(geo, np.float64 if geo.use_f64 else np.float32))
+    tile = min(t_total, SCORE_TILE)
+    n_tiles = -(-t_total // tile)
+    rows = plane_names(geo)
+
+    def score_planes(x: torch.Tensor) -> torch.Tensor:
+        x = normalize_input(x, input_dtype)
+        b = x.shape[0]
+        need = n_tiles * tile + geo.halo
+        if x.shape[1] < need:
+            x = torch.nn.functional.pad(x, (0, need - x.shape[1]))
+        out = torch.empty((b, len(rows), t_total), dtype=torch.int32,
+                          device=x.device)
+        for k in range(n_tiles):
+            t0 = k * tile
+            corr = stage1(x[:, t0:t0 + tile + geo.halo],
+                          tile + geo.max_begin)
+            ch = score_frame_channels(corr, geo, tile)
+            n = min(tile, t_total - t0)
+            for r, name in enumerate(rows):
+                out[:, r, t0:t0 + n] = ch[name][:, :n].view(torch.int32)
+        return out
+
+    return score_planes
+
+
 def make_score_packer_planes(cfg_key, t_total: int, input_dtype: str):
     """fn x[B, t_total + halo] (wire dtype) -> score planes
-    [B, n_planes, t_total] int32 through K1 (ops/fused_score.py).
-    Returns (fn, n_planes)."""
-    from .fused_score import FusedScorer
+    [B, n_planes, t_total] int32, by geometry alone: K1
+    (ops/fused_score.py) where it serves the geometry, else
+    make_score_packer.  Returns (fn, n_planes)."""
+    from . import fused_score
 
-    scorer = FusedScorer(geo_from_key(cfg_key))
+    geo = geo_from_key(cfg_key)
+    if not fused_score.serves(geo):
+        return (make_score_packer(cfg_key, t_total, input_dtype),
+                len(plane_names(geo)))
+    scorer = fused_score.FusedScorer(geo)
 
     def score_planes(x: torch.Tensor) -> torch.Tensor:
         return scorer(normalize_input(x, input_dtype), t_total)
@@ -241,22 +305,26 @@ def make_score_packer_planes(cfg_key, t_total: int, input_dtype: str):
 
 
 def _per_stream(nev: np.ndarray, nby: np.ndarray, ev_h: np.ndarray,
-                by_h: np.ndarray, cap: int):
+                by_h: np.ndarray, cap: int, compact: bool = True):
     """Host copies of the device results -> per-stream (ev_type, ev_pay,
-    byte_stream) tuples.  ev_h [B, >= max n_ev, 8] int32, by_h [B, >= max
-    n_by] uint8; cap is the device byte log's width."""
+    byte_stream) tuples, or (ev_type, ev_pay) with wide records.  ev_h
+    [B, >= max n_ev, 8] int32, by_h [B, >= max n_by] uint8; cap is the
+    device byte log's width."""
     bmax = int(nby.max(initial=0))
     if bmax > cap:
         raise RuntimeError(f"byte log overflow ({bmax} > {cap})")
     ev_h = ev_h.view(np.uint32)
+    if not compact:
+        return [unpack_events(ev_h[i].T, int(nev[i])) for i in range(len(nev))]
     return [
         (*unpack_events(ev_h[i].T, int(nev[i])), by_h[i, :int(nby[i])].copy())
         for i in range(len(nev))
     ]
 
 
-def _collect(out, b: int):
-    """Device results -> per-stream (ev_type, ev_pay, byte_stream) tuples.
+def _collect(out, b: int, compact: bool = True):
+    """Device results -> per-stream (ev_type, ev_pay, byte_stream) tuples,
+    or (ev_type, ev_pay) with wide records (compact=False).
     out = (ev [B, E, 8] i32, n_ev [B], bytes [B, cap] u8, n_by [B])."""
     ev, n_ev, by, n_by = out
     nev = n_ev.cpu().numpy()
@@ -264,22 +332,36 @@ def _collect(out, b: int):
     kmax = int(nev.max(initial=0))
     bmax = min(int(nby.max(initial=0)), by.shape[1])
     return _per_stream(nev, nby, ev[:, :kmax].cpu().numpy(),
-                       by[:, :bmax].cpu().numpy(), by.shape[1])
+                       by[:, :bmax].cpu().numpy(), by.shape[1], compact)
 
 
 class DeviceReceiver:
-    """Host wrapper: pads the streams, runs K1 + K2 on `device`, returns
-    the per-stream (ev_type, ev_pay, byte_stream) tuples."""
+    """Host wrapper: pads the streams, runs the scorer and K2 on `device`,
+    returns the per-stream event tuples.
+
+    compact "auto" (the JAX package's default): data bytes and carrier
+    transitions for <= 8 data bits without stop_on_overflow, else wide
+    records, one per frame with its raw bits.  stop_on_overflow (wide
+    records only): every stream stops at its first no-confidence
+    overflow, with each record's scan position in lane 5 (the device -a
+    loop, rx/engine.py)."""
 
     def __init__(self, cfg: ModemConfig, precision: str = "auto",
-                 rx_one: bool = False, device=_device.DEFAULT):
+                 rx_one: bool = False, compact="auto",
+                 stop_on_overflow: bool = False, device=_device.DEFAULT):
         from .mega_rx import MegaReceiver
 
         self.cfg = cfg
         self.key = device_rx_key(cfg, precision)
         self.rx_one = rx_one
+        self.stop_on_overflow = stop_on_overflow
+        if compact == "auto":
+            self.compact = cfg.n_data_bits <= 8 and not stop_on_overflow
+        else:
+            self.compact = bool(compact)
         self.device = torch.device(device)
-        self._mega = MegaReceiver(cfg, precision, rx_one, self.device)
+        self._mega = MegaReceiver(cfg, precision, rx_one, self.device,
+                                  self.compact, stop_on_overflow)
 
     def run_events_batch(self, samples: np.ndarray, totals,
                          conf_threshold: float, conf_search_limit: float,
@@ -288,9 +370,9 @@ class DeviceReceiver:
         """samples: [B, L] (int16, float32, or uint8 with in_encoding in
         U8_ENCODINGS); totals: [B] valid lengths.
         Returns (events, carry_out): events is a list of per-stream
-        (ev_type, ev_pay, byte_stream) tuples.  Pass carry_out back in
-        (with finalize=False on all but the last segment) for streaming
-        decode."""
+        tuples, (ev_type, ev_pay, byte_stream) in compact mode, else
+        (ev_type, ev_pay).  Pass carry_out back in (with finalize=False on
+        all but the last segment) for streaming decode."""
         return self._mega.run_events_batch(
             samples, totals, conf_threshold, conf_search_limit,
             carry=carry, finalize=finalize, in_encoding=in_encoding)
@@ -353,6 +435,7 @@ class PipelinedReceiver:
         self.rx_one = rx_one
         self.device = torch.device(device)
         self.key = device_rx_key(cfg, precision)
+        self.compact = cfg.n_data_bits <= 8
         geo = geometry_from_config(cfg, precision)
         self.geo = geo
         scan_w = trunc_i(cfg.nsamples_per_bit) + cfg.nsamples_overscan + 1
@@ -369,14 +452,16 @@ class PipelinedReceiver:
 
     def run(self, samples: np.ndarray, conf_threshold: float,
             conf_search_limit: float, in_encoding: str = None):
-        """Yield per-segment (ev_type, ev_pay, byte_stream) tuples."""
+        """Yield per-segment event tuples: (ev_type, ev_pay, byte_stream),
+        or (ev_type, ev_pay) for more than 8 data bits."""
         from .mega_rx import MegaReceiver, mega_runner
 
         _device.require(self.device)
         n = len(samples)
         if n <= self.segment_len:
             events, _ = DeviceReceiver(
-                self.cfg, self.precision, self.rx_one, self.device
+                self.cfg, self.precision, self.rx_one, self.compact,
+                device=self.device
             ).run_events_batch(samples[None, :], [n], conf_threshold,
                                conf_search_limit, in_encoding=in_encoding)
             yield events[0]
@@ -402,10 +487,10 @@ class PipelinedReceiver:
         t_total_f = _round_up_pow2(tail_total + cfg.nsamples_overscan + 1)
 
         dev = self.device
-        MegaReceiver.check_supported(self.key)
         run_nf = mega_runner(self.key, t_total, self.rx_one, in_dtype,
-                             False, u8x)
-        run_f = mega_runner(self.key, t_total_f, self.rx_one, in_dtype, True)
+                             False, u8x, self.compact)
+        run_f = mega_runner(self.key, t_total_f, self.rx_one, in_dtype, True,
+                            0, self.compact)
         thr = (float(conf_threshold), float(conf_search_limit))
         halo = self.geo.halo
         # segment table: (start, scored length, totals, final)
@@ -440,7 +525,7 @@ class PipelinedReceiver:
                 ci[:, 0] -= self.step
                 cf = out[5]
                 pending = upload(i + 1)
-            yield _collect(out[:4], 1)[0]
+            yield _collect(out[:4], 1, self.compact)[0]
 
 
 def _sched_pad(n_bits: int) -> int:
@@ -511,19 +596,17 @@ class DeviceLoopback:
     small results into pinned host buffers on a copy stream, collect_*
     waits for them and unpacks: a serving loop that dispatches batch j+1
     before collecting batch j overlaps the host's work with the card's.
-
-    Geometries the megakernel route does not serve raise
-    NotImplementedError (ROADMAP queue 1 item 8)."""
+    Geometries of more than 8 data bits return wide records (ev_type,
+    ev_pay), as the JAX loopback does."""
 
     def __init__(self, cfg: ModemConfig, precision: str = "auto",
                  amplitude: float = 1.0, rx_one: bool = False,
                  device=_device.DEFAULT):
-        from .mega_rx import MegaReceiver
         from .tx_device import frame_synth_params, uniform_bits_supported
 
         self.cfg = cfg
         self.key = device_rx_key(cfg, precision)
-        MegaReceiver.check_supported(self.key)
+        self.compact = cfg.n_data_bits <= 8
         self.bit_ns = cfg.bit_nsamples_tx
         self.uniform = uniform_bits_supported(cfg)
         self.frame_len = frame_synth_params(cfg)["frame_len"]
@@ -559,7 +642,8 @@ class DeviceLoopback:
         else:
             n_samples = b_pad * self.bit_ns
         t_total = _round_up_pow2(n_samples + cfg.nsamples_overscan + 1)
-        rx = mega_runner(self.key, t_total, self._rx_one, "float32", True)
+        rx = mega_runner(self.key, t_total, self._rx_one, "float32", True, 0,
+                         self.compact)
         width = t_total + self.halo
         amp = self._amplitude
         rows = max(1, SYNTH_STEP // n_samples)
@@ -695,7 +779,7 @@ class DeviceLoopback:
             ev_h = (ev_c.numpy() if kmax <= ev_c.shape[1]
                     else ev[:, :kmax].cpu().numpy())    # rare: the whole log
             res.extend(_per_stream(nev, nby, ev_h, by_h.numpy(),
-                                   by.shape[1]))
+                                   by.shape[1], self.compact))
         if handle.done is not None:
             self._bufs.give(handle.held)
             self._bufs.give(t for h in handle.host for t in h)
@@ -705,7 +789,7 @@ class DeviceLoopback:
     def run_events_batch(self, sched_list, conf_threshold: float = 1.5,
                          conf_search_limit: float = 2.3):
         """sched_list: list of uint8 bit schedules (one per stream).
-        Returns per-stream (ev_type, ev_pay, byte_stream) tuples."""
+        Returns per-stream event tuples (see DeviceReceiver)."""
         return self.collect_events_batch(self.dispatch_events_batch(
             sched_list, conf_threshold, conf_search_limit))
 

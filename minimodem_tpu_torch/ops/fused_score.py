@@ -64,19 +64,26 @@ def smem_bytes(geo: DemodGeometry, tile: int) -> int:
     return 4 * (4 * nb8 + span8 + nb8 + 2 * span8 + 4 * geo.n_bits)
 
 
-def pick_tile(geo: DemodGeometry) -> int:
+def pick_tile(geo: DemodGeometry):
     """The smallest tile of _TILES that is at least _HALO_RATIO *
     max_begin (the largest where none is), stepped down until the CTA
-    fits its shared memory.  Bell-202 at 48 kHz: 4096, a 10% halo, 512
+    fits its shared memory; None where no tile fits (bit spans of
+    thousands of samples).  Bell-202 at 48 kHz: 4096, a 10% halo, 512
     CTAs per 2^21-sample segment."""
     fits = [t for t in _TILES if t >= _HALO_RATIO * geo.max_begin]
     start = _TILES.index(fits[-1]) if fits else 0
     for tile in _TILES[start:]:
         if smem_bytes(geo, tile) <= _SMEM_MAX:
             return tile
-    raise NotImplementedError(
-        f"bit span {geo.max_begin + geo.nb} samples does not fit one CTA's "
-        "shared memory (ROADMAP queue 1 item 8)")
+    return None
+
+
+def serves(geo: DemodGeometry) -> bool:
+    """Whether K1 serves the geometry: float32 scoring, at most 32 frame
+    bits (one bits word), and a tile whose CTA fits its shared memory.
+    Elsewhere the planes come from ops/device_rx.py make_score_packer."""
+    return (not geo.use_f64 and geo.n_bits <= 32
+            and pick_tile(geo) is not None)
 
 
 def score_planes_plain(x: torch.Tensor, geo: DemodGeometry,
@@ -101,10 +108,10 @@ class FusedScorer:
     """K1 for one geometry: device constants are made once per device."""
 
     def __init__(self, geo: DemodGeometry):
-        if geo.use_f64 or geo.n_bits > 32:
-            raise NotImplementedError(
+        if not serves(geo):
+            raise ValueError(
                 "the fused scorer serves float32 geometries of <= 32 frame "
-                "bits (ROADMAP queue 1 item 8)")
+                "bits whose bit span fits one CTA (fused_score.serves)")
         self.geo = geo
         self.n_planes = plane_rows(geo)
         self.tile = pick_tile(geo)

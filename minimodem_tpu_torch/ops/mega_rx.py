@@ -1,14 +1,29 @@
 """K2: the carrier state machine as one CUDA kernel ("megakernel").
 
-Replaces minimodem_tpu/ops/pallas_rx.py::build_mega_rx.  Each stream's
-whole receive loop runs inside the kernel over the score planes K1 wrote
-(ops/fused_score.py): the center-out coarse frame search with early exit
-and strict-improvement ties (reference: src/fsk.c:477-516), the fine
-rescan on acquisition or confidence drop, the confidence and amplitude
-squelch, the 20-scan carrier drop, f32 tracking and stats in reference
-order, the compact byte decode (stop strip, bit window, MSB reversal,
-sync-byte suppression, reference: src/minimodem.c:1414-1443), the event
-log, the carry in and out, and the final NOCARRIER flush.
+Replaces minimodem_tpu/ops/pallas_rx.py::build_mega_rx, and serves as well
+every geometry and mode the JAX package gives its XLA while_loop receiver
+(minimodem_tpu/ops/device_rx.py::_build_device_rx).  Each stream's whole
+receive loop runs inside the kernel over the score planes
+(ops/device_rx.py make_score_packer_planes): the center-out coarse frame
+search with early exit and strict-improvement ties (reference:
+src/fsk.c:477-516), the fine rescan on acquisition or confidence drop,
+the confidence and amplitude squelch, the 20-scan carrier drop, f32
+tracking and stats in reference order, the event log, the carry in and
+out, and the final NOCARRIER flush.  Its output modes:
+
+  compact   the data byte decode (stop strip, bit window, MSB reversal,
+            sync-byte suppression, reference: src/minimodem.c:1414-1443)
+            and carrier-transition events carrying byte positions
+  wide      one record per frame, [bits_lo, bits_hi, conf, ampl, fstart,
+            pos or 0, EV_FRAME | ACQUIRED << 8], and NOCARRIER records of
+            the stats (device_rx.py:779-802); frames of more than 32 bits
+            take their high word from the bits_hi plane
+  stop_on_overflow  (wide only) the stream stops at every no-confidence
+            overflow, and the records carry the iteration's scan position
+            in lane 5
+
+The event and byte bounds are those of the JAX route that serves the
+geometry (megakernel_route), so the two match event for event.
 
 Carry format: [B, 8] int32 (pos, carrier, noconfidence, nframes,
 carrier_nsamples, stop, 0, 0) + [B, 4] float32 (track_amplitude,
@@ -21,12 +36,13 @@ positions in event records restart at 0 each call.
 
 `MegaRx.__call__` is the wrapper: CUDA planes launch csrc/mega_rx.cu (one
 CTA per stream: a TMA-fed ring of score windows in shared memory, whose
-geometry `ring_geometry` picks, and a warp-parallel frame search, whose
-rule `find_frame_parallel` states), CPU planes run `mega_rx_plain` (a
-per-stream Python loop with numpy float32 stats), anything else raises.
-Of the TPU kernel's latency tricks the prefetched resident window is
-carried over as the ring; speculative multi-frame decode, the fast-path
-probe and the byte-ring blend are not.
+geometry `ring_geometry` picks, or no ring where a scan window does not
+fit, and a warp-parallel frame search, whose rule `find_frame_parallel`
+states), CPU planes run `mega_rx_plain` (a per-stream Python loop with
+numpy float32 stats), anything else raises.  Of the TPU kernel's latency
+tricks the prefetched resident window is carried over as the ring;
+speculative multi-frame decode, the fast-path probe and the byte-ring
+blend are not.
 """
 
 from __future__ import annotations
@@ -41,6 +57,8 @@ import torch
 from ..utils import device as _device
 from .device_rx import (
     EV_CARRIER,
+    EV_FLAG_ACQUIRED,
+    EV_FRAME,
     EV_NOCARRIER,
     FSK_ANALYZE_NSTEPS,
     FSK_ANALYZE_NSTEPS_FINE,
@@ -54,14 +72,16 @@ from .device_rx import (
     expand_wire,
     geo_from_key,
     make_score_packer_planes,
+    plane_names,
     wire_dtype,
 )
 
 W_LANES = 128
-# largest scan window the JAX megakernel serves (pallas_rx.py:93); wider
-# windows (very low baud rates) are the XLA receiver's, not ported yet
+# largest scan window the JAX megakernel serves (pallas_rx.py:93); the JAX
+# package serves wider windows with its XLA receiver
 W_FETCH_MAX = 16384
-# candidate table width the kernel's parameter block holds
+# candidate table width the kernel's parameter block holds: no geometry of
+# the presets or of bell_like bauds at 8-96 kHz has more than 15
 K_MAX = 16
 
 
@@ -92,35 +112,26 @@ def _static_geom(cfg_key):
 
 def _mega_window(cfg_key):
     """w_fetch of the JAX megakernel for this geometry
-    (pallas_rx.py:177); it decides which geometries the
-    megakernel route serves."""
+    (pallas_rx.py:177)."""
     geom = _static_geom(cfg_key)
     w_scan = max(geom[0]["try_max"], geom[1]["try_max"])
     return ((w_scan + W_LANES - 1) // W_LANES + 1) * W_LANES
 
 
-def unsupported_reason(cfg_key):
-    """Why the megakernel route cannot serve this geometry, or None."""
-    geo = geo_from_key(cfg_key)
-    if cfg_key[2] > 8:
-        return "more than 8 data bits"
-    if geo.use_f64:
-        return "float64 (perfect-capable) scoring"
-    if geo.n_bits > 32:
-        return "more than 32 frame bits"
-    if _mega_window(cfg_key) > W_FETCH_MAX:
-        return "a scan window over 16384 samples"
-    geom = _static_geom(cfg_key)
-    if max(len(g[k]) for g in geom.values() for k in ("coarse", "fine")) \
-            > K_MAX:
-        return f"more than {K_MAX} scan candidates"
-    return None
+def megakernel_route(cfg_key) -> bool:
+    """Whether the JAX package decodes this geometry with its megakernel
+    (pallas_rx.py:1187-1200: <= 8 data bits, float32 scoring, a scan
+    window of <= 16384 samples) rather than its XLA receiver.  K2 serves
+    both routes; the route decides only the event and byte bounds, so
+    that each matches its JAX counterpart event for event."""
+    return (cfg_key[2] <= 8 and not geo_from_key(cfg_key).use_f64
+            and _mega_window(cfg_key) <= W_FETCH_MAX)
 
 
 @dataclass(frozen=True)
 class MegaStatics:
-    """Everything static the state machine depends on, for one geometry
-    and one scored length."""
+    """Everything static the state machine depends on, for one geometry,
+    one scored length and one output mode."""
 
     t_total: int
     expect_nsamples: int
@@ -139,39 +150,68 @@ class MegaStatics:
     sync_ok: bool
     sync_byte: int
     dual: bool
+    bits_hi: bool              # a bits_hi plane (more than 32 frame bits)
+    n_planes: int
+    compact: bool              # bytes + transition events, else wide records
+    stop_on_overflow: bool
 
     @classmethod
-    def build(cls, cfg_key, t_total: int, rx_one: bool) -> "MegaStatics":
+    def build(cls, cfg_key, t_total: int, rx_one: bool, compact: bool = True,
+              stop_on_overflow: bool = False) -> "MegaStatics":
+        """compact: frame bits become data bytes in the kernel and the
+        event log holds the carrier transitions (<= 8 data bits); else
+        every frame is a wide record of its raw bits.  stop_on_overflow:
+        the stream stops at every no-confidence overflow (-a re-arms its
+        carrier detection there)."""
         (sample_rate, data_rate_bits, n_data_bits, nstartbits,
          nstopbits_bits, b_mark, b_space, fftsize, nb, magscalar_bits,
          bit_begin, n_bits, req_data, req_sync, use_f64, frame_nsamples,
          overscan, expect_nsamples, msb_first, do_rx_sync,
          sync_byte) = cfg_key
+        if compact and (n_data_bits > 8 or stop_on_overflow):
+            raise ValueError("compact mode needs <= 8 data bits and no "
+                             "stop_on_overflow (its records are wide)")
         geom = _static_geom(cfg_key)
+        assert max(len(g[k]) for g in geom.values()
+                   for k in ("coarse", "fine")) <= K_MAX
         nstop_shift = (0 if np.uint32(nstopbits_bits).view(np.float32) == 0
                        else 1)
-        # event and byte bounds of the JAX megakernel (pallas_rx.py:276-293)
-        frame_adv = max(1, frame_nsamples - overscan)
-        drop_adv = max(1, (FSK_MAX_NOCONFIDENCE_BITS + 1)
-                       * min(geom[0]["try_max"], geom[1]["try_max"]))
+        try_max = (geom[0]["try_max"], geom[1]["try_max"])
+        if compact and megakernel_route(cfg_key):
+            # the JAX megakernel's bounds (pallas_rx.py:276-293)
+            frame_adv = max(1, frame_nsamples - overscan)
+            drop_adv = max(1, (FSK_MAX_NOCONFIDENCE_BITS + 1) * min(try_max))
+            max_events = 2 * (t_total // (frame_adv + drop_adv)) + 16
+            b_cap = t_total // frame_adv + 17
+        else:
+            # the JAX XLA receiver's (device_rx.py:442-445), whose wide mode
+            # spends one record on every frame; its byte log is as long
+            min_advance = max(1, min(frame_nsamples - overscan, *try_max))
+            max_events = ((t_total // min_advance + 16 + 7) // 8) * 8
+            b_cap = max_events if compact else 0
+        names = plane_names(geo_from_key(cfg_key))
         return cls(
             t_total=t_total,
             expect_nsamples=expect_nsamples,
             frame_nsamples=frame_nsamples,
             overscan=overscan,
-            try_max=(geom[0]["try_max"], geom[1]["try_max"]),
+            try_max=try_max,
             coarse_step=(geom[0]["coarse_step"], geom[1]["coarse_step"]),
             cand_c=(tuple(geom[0]["coarse"]), tuple(geom[1]["coarse"])),
             cand_f=(tuple(geom[0]["fine"]), tuple(geom[1]["fine"])),
-            max_events=2 * (t_total // (frame_adv + drop_adv)) + 16,
-            b_cap=t_total // frame_adv + 17,
+            max_events=max_events,
+            b_cap=b_cap,
             rx_one=bool(rx_one),
             n_data_bits=n_data_bits,
             data_shift=nstop_shift + nstartbits,
             msb_first=bool(msb_first),
             sync_ok=bool(do_rx_sync and 0 <= sync_byte < (1 << n_data_bits)),
             sync_byte=int(sync_byte),
-            dual=tuple(req_data) != tuple(req_sync),
+            dual="conf_sync" in names,
+            bits_hi="bits_hi" in names,
+            n_planes=len(names),
+            compact=bool(compact),
+            stop_on_overflow=bool(stop_on_overflow),
         )
 
 
@@ -194,7 +234,7 @@ def ring_smem_bytes(n_held: int, stages: int) -> int:
 @dataclass(frozen=True)
 class Ring:
     window: int        # G
-    stages: int        # S
+    stages: int        # S; 0: no ring, the search reads global memory
     hold_all: bool     # every plane held, else the confidence plane(s) only
     n_held: int
     smem_bytes: int
@@ -213,9 +253,13 @@ def ring_geometry(st: MegaStatics) -> Ring:
     this frame decides.  The ring holds every plane when that fits in
     SMEM_MAX, else the confidence plane(s) only (cd, and cs in the dual
     layout).  Where not even those cover an advance (scan windows of
-    thousands of samples) it takes the stages that fit, which always hold
-    a scan window (G * (S - 1) >= w_scan, w_scan <= 16384): the search
-    stays exact, only its prefetch is shorter than a frame."""
+    thousands of samples) it takes the stages that fit, as long as they
+    hold a scan window (G * (S - 1) >= w_scan): the search stays exact,
+    only its prefetch is shorter than a frame.  Where they do not (scan
+    windows of tens of thousands of samples, or dual planes at slow
+    bauds) there is no ring: the warp reads its candidates straight from
+    global memory.  The bits_hi plane is never held: the winner's high
+    word is one global load."""
     n_all = 5 if st.dual else 3
     n_conf = 2 if st.dual else 1
     w_scan = max(st.try_max)
@@ -228,10 +272,10 @@ def ring_geometry(st: MegaStatics) -> Ring:
                         ring_smem_bytes(n_held, stages))
     stages = (SMEM_MAX - ring_smem_bytes(n_conf, 0)) // (
         ring_smem_bytes(n_conf, 1) - ring_smem_bytes(n_conf, 0))
-    if g * (stages - 1) < w_scan:
-        raise NotImplementedError(
-            f"a scan window of {w_scan} samples does not fit K2's ring")
-    return Ring(g, stages, False, n_conf, ring_smem_bytes(n_conf, stages))
+    if stages >= 2 and g * (stages - 1) >= w_scan:
+        return Ring(g, stages, False, n_conf,
+                    ring_smem_bytes(n_conf, stages))
+    return Ring(g, 0, False, 0, ring_smem_bytes(0, 0))
 
 
 # ======================================================================
@@ -316,6 +360,14 @@ def _decode_word(st: MegaStatics, blo: int):
     return word, not (st.sync_ok and word == st.sync_byte)
 
 
+def _hi_word(bh, pos: int, t: int, c) -> int:
+    """The high frame-bits word at a search's winner (found: c > 0), or 0
+    (no bits_hi plane, or no winner), as an int32."""
+    if bh is None or not c > 0:
+        return 0
+    return int(bh[pos + t])
+
+
 def _run_stream(st: MegaStatics, finalize: bool, planes, total, thr, lim,
                 ci, cf, ev, by):
     """One stream's state machine over numpy planes [P, T] int32.
@@ -327,6 +379,7 @@ def _run_stream(st: MegaStatics, finalize: bool, planes, total, thr, lim,
     bl = planes[2]
     cs, as_ = ((planes[3].view(np.float32), planes[4].view(np.float32))
                if st.dual else (cd, ad))
+    bh = planes[st.n_planes - 1] if st.bits_hi else None
     pos, carrier, noconf, nframes, carrier_ns, stop = (int(v) for v in ci[:6])
     track, peak, conf_tot, ampl_tot = (np.float32(v) for v in cf[:4])
     n_ev = n_by = 0
@@ -337,8 +390,9 @@ def _run_stream(st: MegaStatics, finalize: bool, planes, total, thr, lim,
         conf_a, ampl_a = (cd, ad) if cw else (cs, as_)
         c, a, blo, fs = _find_frame(conf_a, ampl_a, bl, t_scored, pos,
                                     st.cand_c[cw], lim)
+        bhi = _hi_word(bh, pos, fs, c)
         n_search += 1
-        n_words += len(st.cand_c[cw]) + 2
+        n_words += len(st.cand_c[cw]) + 2 + st.bits_hi
         refine = c < peak * q75
         if refine:
             peak = _F0
@@ -355,10 +409,11 @@ def _run_stream(st: MegaStatics, finalize: bool, planes, total, thr, lim,
             # fine rescan: same window, data expect, no early exit
             c2, a2, blo2, fs2 = _find_frame(cd, ad, bl, t_scored, pos,
                                             st.cand_f[cw], _INF)
-            n_words += len(st.cand_f[cw]) + 2
+            n_words += len(st.cand_f[cw]) + 2 + st.bits_hi
             if c2 > c:
                 # NB: confidence itself is not updated (minimodem.c:1383)
                 a, blo, fs = a2, blo2, fs2
+                bhi = _hi_word(bh, pos, fs, c2)
         if got:
             carrier_ns += st.frame_nsamples + (
                 fs_coarse - st.overscan if cw else 0)
@@ -371,14 +426,28 @@ def _run_stream(st: MegaStatics, finalize: bool, planes, total, thr, lim,
             advance = fs + st.frame_nsamples - st.overscan
         else:
             advance = st.try_max[cw]
-        if drop_report:
-            ev[n_ev] = (_i32(nframes), _fbits(conf_tot), _fbits(ampl_tot),
-                        _i32(carrier_ns), n_by, 0, EV_NOCARRIER, 0)
+        if st.compact:
+            if drop_report:
+                ev[n_ev] = (_i32(nframes), _fbits(conf_tot), _fbits(ampl_tot),
+                            _i32(carrier_ns), n_by, 0, EV_NOCARRIER, 0)
+                n_ev += 1
+            elif acquired:
+                ev[n_ev] = (n_by, 0, 0, 0, 0, 0, EV_CARRIER, 0)
+                n_ev += 1
+        elif drop_report or got:
+            # wide records (device_rx.py:779-802): a NOCARRIER's stats, or
+            # the frame's raw bits with the ACQUIRED flag; lane 5 is this
+            # iteration's scan position when the stream stops on overflow
+            at = _i32(pos) if st.stop_on_overflow else 0
+            if drop_report:
+                ev[n_ev] = (_i32(nframes), _fbits(conf_tot), _fbits(ampl_tot),
+                            _i32(carrier_ns), 0, at, EV_NOCARRIER, 0)
+            else:
+                ev[n_ev] = (_i32(blo), bhi, _fbits(c), _fbits(a), fs, at,
+                            EV_FRAME | (EV_FLAG_ACQUIRED if acquired else 0),
+                            0)
             n_ev += 1
-        elif acquired:
-            ev[n_ev] = (n_by, 0, 0, 0, 0, 0, EV_CARRIER, 0)
-            n_ev += 1
-        if got:
+        if got and st.compact:
             word, keep = _decode_word(st, blo)
             if keep:
                 if n_by >= st.b_cap:
@@ -392,6 +461,10 @@ def _run_stream(st: MegaStatics, finalize: bool, planes, total, thr, lim,
             nframes = carrier_ns = 0
             if st.rx_one:
                 stop = 1
+        if drop and st.stop_on_overflow:
+            # -a re-arms carrier detection at every overflow, reported or
+            # not (minimodem.c:1295-1297): the host retunes here
+            stop = 1
     ci_out = (_i32(pos), carrier, noconf, _i32(nframes), _i32(carrier_ns),
               stop, 0, 0)
     cf_out = (track, peak, conf_tot, ampl_tot)
@@ -447,7 +520,8 @@ class MegaParams(ctypes.Structure):
         "overscan", "try_max0", "try_max1", "coarse_step0", "coarse_step1",
         "max_events", "b_cap", "rx_one", "finalize", "n_data_bits",
         "data_shift", "msb_first", "sync_ok", "sync_byte", "dual",
-        "hold_all", "window", "stages", "smem_bytes")] + [
+        "hold_all", "window", "stages", "smem_bytes", "compact",
+        "stop_on_overflow", "bits_hi")] + [
         ("conf_threshold", ctypes.c_float),
         ("conf_search_limit", ctypes.c_float),
         ("cand_c", (ctypes.c_int * K_MAX) * 2),
@@ -482,7 +556,7 @@ class MegaRx:
         if dev.type != "cuda":
             raise ValueError(f"no megakernel for device {dev}")
         planes = planes.contiguous()
-        n_planes = 5 if self.st.dual else 3
+        n_planes = self.st.n_planes
         if (planes.dtype != torch.int32 or planes.dim() != 3
                 or planes.shape[1] != n_planes or planes.shape[2] % 4
                 or planes.data_ptr() % 16):
@@ -521,7 +595,9 @@ class MegaRx:
             sync_ok=int(st.sync_ok), sync_byte=st.sync_byte,
             dual=int(st.dual), hold_all=int(self.ring.hold_all),
             window=self.ring.window, stages=self.ring.stages,
-            smem_bytes=self.ring.smem_bytes,
+            smem_bytes=self.ring.smem_bytes, compact=int(st.compact),
+            stop_on_overflow=int(st.stop_on_overflow),
+            bits_hi=int(st.bits_hi),
             conf_threshold=float(np.float32(thr[0])),
             conf_search_limit=float(np.float32(thr[1])))
         for row, (cc, ff) in enumerate(zip(st.cand_c, st.cand_f)):
@@ -541,13 +617,16 @@ class MegaRx:
 
 @functools.lru_cache(maxsize=32)
 def mega_runner(cfg_key, t_total: int, rx_one: bool, input_dtype: str,
-                finalize: bool = True, u8_extra: int = 0):
-    """The packer + megakernel program for one geometry, scored length
-    and wire dtype (the counterpart of pallas_rx._mega_run_fn), for any
-    batch and device.  Returns run(x [B, t_total + halo], totals [B] i32,
-    (thr, limit), carry_i, carry_f) -> (ev, n_ev, bytes, n_by,
-    carry_i_out, carry_f_out) on x's device."""
-    st = MegaStatics.build(cfg_key, t_total, rx_one)
+                finalize: bool = True, u8_extra: int = 0,
+                compact: bool = True, stop_on_overflow: bool = False):
+    """The packer + state machine program for one geometry, scored length,
+    wire dtype and output mode (the counterpart of pallas_rx._mega_run_fn
+    and device_rx._build_device_rx), for any batch and device.  Returns
+    run(x [B, t_total + halo], totals [B] i32, (thr, limit), carry_i,
+    carry_f) -> (ev, n_ev, bytes, n_by, carry_i_out, carry_f_out) on x's
+    device."""
+    st = MegaStatics.build(cfg_key, t_total, rx_one, compact,
+                           stop_on_overflow)
     u8 = input_dtype in U8_ENCODINGS
     packer, _ = make_score_packer_planes(
         cfg_key, t_total, "float32" if u8 else input_dtype)
@@ -562,25 +641,20 @@ def mega_runner(cfg_key, t_total: int, rx_one: bool, input_dtype: str,
 
 
 class MegaReceiver:
-    """Batched receiver on K1 + K2: per-stream (ev_type, ev_pay,
-    byte_stream) tuples, the same as the JAX compact receivers."""
+    """Batched receiver on the score planes (K1, or make_score_packer) and
+    K2: per-stream (ev_type, ev_pay, byte_stream) tuples in compact mode,
+    (ev_type, ev_pay) with wide records, as the JAX receivers return
+    them."""
 
     def __init__(self, cfg, precision: str = "auto", rx_one: bool = False,
-                 device=_device.DEFAULT):
+                 device=_device.DEFAULT, compact: bool = True,
+                 stop_on_overflow: bool = False):
         self.cfg = cfg
         self.key = device_rx_key(cfg, precision)
-        self.check_supported(self.key)
         self.rx_one = rx_one
         self.device = torch.device(device)
-
-    @staticmethod
-    def check_supported(cfg_key):
-        why = unsupported_reason(cfg_key)
-        if why is not None:
-            raise NotImplementedError(
-                f"the megakernel route does not serve {why}; the JAX "
-                "package's XLA receiver for it is not ported yet (ROADMAP "
-                "queue 1 item 8)")
+        self.compact = bool(compact)
+        self.stop_on_overflow = bool(stop_on_overflow)
 
     @staticmethod
     def carry_to_arrays(carry, b):
@@ -629,7 +703,7 @@ class MegaReceiver:
         halo = geo_from_key(self.key).halo
         in_dtype = wire_dtype(samples, in_encoding)
         run = mega_runner(self.key, t_total, self.rx_one, in_dtype,
-                          finalize)
+                          finalize, 0, self.compact, self.stop_on_overflow)
         row = t_total + halo
         x = alloc_wire((b, row), samples.dtype, in_encoding)
         x[:, :min(L, row)] = samples[:, :row]
@@ -637,6 +711,6 @@ class MegaReceiver:
         out = run(torch.from_numpy(x).to(dev), torch.from_numpy(totals).to(dev),
                   (conf_threshold, conf_search_limit),
                   torch.from_numpy(ci).to(dev), torch.from_numpy(cf).to(dev))
-        events = _collect(out[:4], b)
+        events = _collect(out[:4], b, self.compact)
         return events, self.arrays_to_carry(out[4].cpu().numpy(),
                                             out[5].cpu().numpy())

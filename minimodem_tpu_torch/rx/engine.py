@@ -3,7 +3,9 @@
 Counterpart of minimodem_tpu/rx/engine.py.  Three engines:
 
 - "device" (and "auto"): the state machine runs on the device
-  (ops/mega_rx.py); this module renders its event stream.
+  (ops/mega_rx.py); this module renders its event stream.  With carrier
+  autodetect (-a) the detection scans run here and each detected burst
+  decodes on the device with the retuned geometry.
 - "host": chunked scoring (ops/demod.py DemodScorer, the stage-1 kernel
   on CUDA) and a Python replay of the reference's sequential receive loop
   (reference: src/minimodem.c:1137-1463) over the score arrays, including
@@ -14,8 +16,6 @@ Counterpart of minimodem_tpu/rx/engine.py.  Three engines:
 Stdout carries decoded bytes, stderr the reference's CARRIER / NOCARRIER
 protocol lines (reference: src/minimodem.c:253-291, 1336-1348,
 1414-1459).
-
-Not ported yet: -a on the device engine (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -149,6 +149,7 @@ class Receiver:
         self.write_err = write_err
         self.device = device
         self.stats = None  # filled per NOCARRIER report (for tests)
+        self._tuned_b_mark = None  # the band -a detected, for CARRIER lines
 
     # ------------------------------------------------------------------
     def run(self, samples: np.ndarray, engine: str = "auto",
@@ -156,9 +157,9 @@ class Receiver:
         """Decode a sample stream.
 
         engine: "device" = the device-resident state machine, "host" =
-        chunked scoring + the Python state machine (reference replay, the
-        route for carrier autodetect), "host-native" = chunked scoring +
-        the C++ state machine (native/hostrx.cpp), "auto" = device.
+        chunked scoring + the Python state machine (reference replay),
+        "host-native" = chunked scoring + the C++ state machine
+        (native/hostrx.cpp), "auto" = device.
 
         in_encoding: u8 wire encoding ("ulaw"/"alaw"/"pcm8") of a raw
         uint8 sample array — the device engine ships 1 byte/sample and
@@ -169,17 +170,14 @@ class Receiver:
             engine = "device"
         if engine == "device":
             if self.opts.carrier_autodetect_threshold > 0.0:
-                raise NotImplementedError(
-                    "carrier autodetect (-a) on the device engine is not "
-                    "ported to the PyTorch package yet (ROADMAP queue 1 "
-                    "item 9); use --engine host")
+                if in_encoding:
+                    samples = self._expand_u8(samples, in_encoding)
+                return self._run_device_autodetect(samples)
             return self._run_device(samples, in_encoding)
         if engine not in ("host", "host-native"):
             raise ValueError(f"unknown engine {engine!r}")
         if in_encoding:
-            from ..sigio.containers import expand_u8
-
-            samples = expand_u8(samples, in_encoding)
+            samples = self._expand_u8(samples, in_encoding)
         if samples.dtype == np.int16:
             samples = samples.astype(np.float32) / np.float32(32768.0)
         if engine == "host-native":
@@ -207,6 +205,215 @@ class Receiver:
                 in_encoding=in_encoding):
             rc = self.render_events(*seg_events)
         return rc
+
+    @staticmethod
+    def _expand_u8(samples: np.ndarray, in_encoding: str) -> np.ndarray:
+        from ..sigio.containers import expand_u8
+
+        return expand_u8(samples, in_encoding)
+
+    # ------------------------------------------------------------------
+    def _run_device_autodetect(self, samples: np.ndarray) -> int:
+        """-a on the device engine (the JAX package's
+        Receiver._run_device_autodetect, minimodem_tpu/rx/engine.py:
+        208-374).  The detection scans run on the host (rfft probes on the
+        samplebuf grid, reference: src/minimodem.c:1179-1220); each
+        detected burst then decodes on the device with the retuned
+        geometry, entering with the carried state-machine fields and
+        stopping at the first no-confidence overflow, where the reference
+        re-arms detection (:1295-1297; DeviceReceiver's stop_on_overflow).
+        The samplebuf refill/advance phase that sets the next probe grid
+        is replayed from the wide records, which carry each iteration's
+        scan position in lane 5 (_replay_samplebuf)."""
+        from ..ops.device_rx import EV_NOCARRIER, DeviceReceiver, zero_carry
+
+        if samples.dtype == np.int16:
+            samples = samples.astype(np.float32) / np.float32(32768.0)
+        samples = np.ascontiguousarray(samples, np.float32)
+        cfg = self.cfg
+        opts = self.opts
+        total = len(samples)
+
+        # samplebuf sizing (reference: src/minimodem.c:1052-1071)
+        nbits = 1 + cfg.nstartbits + cfg.n_data_bits + 1
+        samplebuf_size = int(np.ceil(
+            np.float32(cfg.nsamples_per_bit))) * (nbits + 1)
+        samplebuf_size *= 2
+        if samplebuf_size < cfg.sample_rate // 12:
+            samplebuf_size = cfg.sample_rate // 12
+        half = samplebuf_size // 2
+        if cfg.expect_nsamples > half:
+            # the device's end test (pos + expect <= total) is the host's
+            # (nvalid < expect) only while refills keep nvalid >= half:
+            # such geometries replay on the host, as in the JAX package
+            return self._run_host(samples)
+
+        nspb = cfg.nsamples_per_bit
+        overscan = cfg.nsamples_overscan
+        try_max_c = round_half_up_i(f32_mul(nspb, 0.75)) + overscan
+        try_max_n = trunc_i(nspb) + overscan
+
+        pos = 0
+        nvalid = 0
+        advance = 0
+        carry = zero_carry(1)
+        receivers: dict = {}
+        ret = 0
+
+        def refill_step(p, nv, a):
+            """One loop-top samplebuf update (reference: :1144-1174)."""
+            if a == samplebuf_size:
+                nv = 0
+                a = 0
+            if a:
+                if a > nv:
+                    return p, nv, a, False
+                p += a
+                nv -= a
+                a = 0
+            if nv < half:
+                nv += min(half, max(0, total - (p + nv)))
+            return p, nv, 0, True
+
+        try:
+            while True:
+                pos, nvalid, advance, ok = refill_step(pos, nvalid, advance)
+                if not ok or nvalid == 0:
+                    break
+
+                # ---- detection scan (reference: :1179-1220) ----
+                nscan_f = nspb
+                if float(nscan_f) > cfg.fftsize:
+                    nscan_f = f32(cfg.fftsize)
+                nscan = trunc_i(nscan_f)
+                i = 0
+                band = -1
+                while np.float32(i) + nscan_f <= np.float32(nvalid):
+                    band = detect_carrier_band(
+                        samples[pos + i: pos + i + nscan], nscan,
+                        cfg.fftsize, opts.carrier_autodetect_threshold)
+                    if band >= 0:
+                        break
+                    i = trunc_i(np.float32(i) + nscan_f)
+                advance = trunc_i(np.float32(i) + nscan_f)
+                if advance > nvalid:
+                    advance = nvalid
+                if band < 0:
+                    continue
+                b_shift = -trunc_i(f32_div(
+                    f32_add(cfg.autodetect_shift,
+                            f32_div(cfg.band_width, 2.0)),
+                    cfg.band_width))
+                if cfg.inverted_freqs:
+                    b_shift *= -1
+                b_space = band + b_shift
+                if b_space < 1 or b_space >= cfg.nbands:
+                    continue
+                self._tuned_b_mark = band
+                # the pending detect advance is dropped once decode
+                # proceeds (the frame and no-confidence paths set
+                # `advance` unconditionally, :1292-1325)
+                advance = 0
+
+                if nvalid < cfg.expect_nsamples:
+                    break
+
+                # ---- device decode segment (band fixed) ----
+                rx = receivers.get((band, b_space))
+                if rx is None:
+                    rcfg = copy.copy(cfg)
+                    rcfg.set_tones_by_bandshift(band, b_space - band)
+                    rx = DeviceReceiver(rcfg, opts.precision,
+                                        rx_one=opts.rx_one, compact=False,
+                                        stop_on_overflow=True,
+                                        device=self.device)
+                    receivers[(band, b_space)] = rx
+                seg_carry = {k: np.asarray(v).copy()
+                             for k, v in carry.items()}
+                seg_carry["pos"][0] = pos
+                seg_carry["stop"][0] = False
+                events, carry = rx.run_events_batch(
+                    samples[None, :], [total],
+                    float(opts.confidence_threshold),
+                    float(opts.confidence_search_limit),
+                    carry=seg_carry, finalize=False)
+                ev_t, ev_p = events[0]
+                ret = self.render_events(ev_t, ev_p)
+                pos_end = int(carry["pos"][0])
+
+                # ---- samplebuf phase replay over the segment ----
+                pos, nvalid = self._replay_samplebuf(
+                    pos, nvalid, ev_t, ev_p, pos_end,
+                    try_max_c, try_max_n, samplebuf_size, total)
+
+                if opts.rx_one and any(int(t) == EV_NOCARRIER for t in ev_t):
+                    return ret
+                # the device stopped at the end of the stream, not at an
+                # overflow: nothing is left to re-arm on
+                if not bool(carry["stop"][0]):
+                    break
+                carry["stop"][0] = False
+                advance = 0
+        except KeyboardInterrupt:
+            pass
+
+        if bool(carry["carrier"][0]) and not opts.quiet:
+            self._report_no_carrier(
+                int(carry["nframes"][0]), int(carry["carrier_nsamples"][0]),
+                carry["conf_total"][0], carry["ampl_total"][0])
+        return ret
+
+    def _replay_samplebuf(self, pos, nvalid, ev_t, ev_p, pos_end,
+                          try_max_c, try_max_n, samplebuf_size, total):
+        """Integer replay of the samplebuf advance/refill phase across a
+        device decode segment (minimodem_tpu/rx/engine.py:608-662): wide
+        frame records carry their scan position (lane 5) and frame start
+        (lane 4), so every iteration's advance can be rebuilt; frames
+        advance by fstart + frame_nsamples - overscan, no-confidence
+        iterations by the carrier-dependent try_max (reference:
+        :1144-1174, :1236-1251)."""
+        from ..ops.device_rx import EV_CARRIER, EV_FRAME, EV_NOCARRIER
+
+        cfg = self.cfg
+        half = samplebuf_size // 2
+        cursor = pos
+        nv = nvalid
+        carrier = False
+
+        def step(adv):
+            nonlocal cursor, nv
+            if adv == samplebuf_size:
+                nv = 0
+            else:
+                cursor += adv
+                nv -= adv
+            if nv < half:
+                nv += min(half, max(0, total - (cursor + nv)))
+
+        def try_max():
+            return try_max_c if carrier else try_max_n
+
+        for et, pay in zip(ev_t, ev_p):
+            et = int(et)
+            if et == EV_CARRIER:
+                continue
+            ev_pos = int(pay[5])
+            while cursor < ev_pos:
+                step(try_max())
+            if et == EV_FRAME:
+                fstart = int(np.int32(np.uint32(pay[4])))
+                step(fstart + cfg.frame_nsamples - cfg.nsamples_overscan)
+                carrier = True
+            elif et == EV_NOCARRIER:
+                step(try_max())      # the drop iteration's advance
+                carrier = False
+        while cursor < pos_end:
+            step(try_max())
+        if cursor != pos_end:
+            raise RuntimeError(
+                f"samplebuf replay ended at {cursor}, the device at "
+                f"{pos_end}")
+        return cursor, nv
 
     # ------------------------------------------------------------------
     def _run_host_native(self, samples: np.ndarray) -> int:
@@ -328,7 +535,7 @@ class Receiver:
                 pos = bpos
                 if et == EV_CARRIER:
                     if not opts.quiet:
-                        self._render_carrier_line()
+                        self._render_carrier_line(self._tuned_b_mark)
                     self.codec.reset()
                 elif et == EV_NOCARRIER:
                     if not opts.quiet:
@@ -343,7 +550,7 @@ class Receiver:
             pay = ev_pay[k]
             if et == EV_CARRIER:
                 if not opts.quiet:
-                    self._render_carrier_line()
+                    self._render_carrier_line(self._tuned_b_mark)
                 self.codec.reset()
             elif et == EV_FRAME:
                 bits = int(pay[0]) | (int(pay[1]) << 32)

@@ -168,7 +168,7 @@ def _k1_planes(cuda, cfg, streams, t_total):
 
 
 def _k2_equals_plain(key, planes, totals, rx_one=False, carry=None,
-                     finalize=True):
+                     finalize=True, compact=True, stop_on_overflow=False):
     """K2 on the card against the plain K2 on a CPU copy of the same
     inputs: events, bytes and carry exactly.  -> (kernel's outputs, its
     MegaRx)."""
@@ -176,7 +176,8 @@ def _k2_equals_plain(key, planes, totals, rx_one=False, carry=None,
     from minimodem_tpu_torch.ops.mega_rx import MegaRx, MegaStatics
 
     b = planes.shape[0]
-    st = MegaStatics.build(key, planes.shape[2], rx_one)
+    st = MegaStatics.build(key, planes.shape[2], rx_one, compact,
+                           stop_on_overflow)
     mega = MegaRx(st)
     if carry is None:
         carry = (torch.zeros((b, 8), dtype=torch.int32),
@@ -186,7 +187,7 @@ def _k2_equals_plain(key, planes, totals, rx_one=False, carry=None,
     k = mega(planes, tt.to(planes.device), (THR, LIM), ci.to(planes.device),
              cf.to(planes.device), finalize)
     p = mega(planes.cpu(), tt, (THR, LIM), ci, cf, finalize)
-    for a, c in zip(_collect(k[:4], b), _collect(p[:4], b)):
+    for a, c in zip(_collect(k[:4], b, compact), _collect(p[:4], b, compact)):
         assert len(a) == len(c)
         for u, v in zip(a, c):
             np.testing.assert_array_equal(u, v)
@@ -281,6 +282,151 @@ def test_mega_kernel_dual_layout_confidence_ring(cuda):
                                [n, n * 3 // 4])
     assert mega.st.dual and not mega.ring.hold_all and mega.ring.n_held == 2
     assert int(k[3].sum()) > 0
+
+
+def _uic_signal(direction, n_frames, seed, noise=0.3):
+    """A UIC-751-3 burst: n_frames telegrams of seeded data bits after the
+    sync pattern 11110010, keyed as raw frame bits between mark leaders
+    (tests/test_features.py::test_uic_decode), plus uniform noise."""
+    from minimodem_tpu_torch.models.presets import uic
+    from minimodem_tpu_torch.ops.tx import ToneGenerator
+    from minimodem_tpu_torch.sigio import SampleFormat
+
+    rng = np.random.default_rng(seed)
+    cfg = uic(direction).cfg
+    gen = ToneGenerator(cfg.sample_rate, SampleFormat.FLOAT)
+
+    def key(bits):
+        for v in bits:
+            gen.tone(float(cfg.mark_f if v else cfg.space_f),
+                     cfg.bit_nsamples_tx)
+
+    key([1] * 8)
+    for _ in range(n_frames):
+        data = int(rng.integers(0, 1 << 39))
+        key([1, 1, 1, 1, 0, 0, 1, 0] + [(data >> i) & 1 for i in range(39)])
+    key([1] * 8)
+    wav = gen.synthesize()
+    wav = wav + (rng.random(wav.size, dtype=np.float32)
+                 - np.float32(0.5)) * np.float32(noise)
+    return cfg, wav.astype(np.float32)
+
+
+def _slow_dual(seed):
+    """Bell-like 2 baud at 48 kHz with sync bytes (the dual layout): a scan
+    window of ~30000 samples, whose two confidence planes no ring holds."""
+    from minimodem_tpu_torch.models.presets import bell_like
+
+    pre = bell_like(2, 48000, do_rx_sync=True, do_tx_sync_bytes=2,
+                    sync_byte=0xAB)
+    m = _modem("1200")
+    m.preset, m.cfg = pre, pre.cfg
+    rng = np.random.default_rng(seed)
+    wav = m.modulate(b"ok")
+    return pre.cfg, (wav + (rng.random(wav.size, dtype=np.float32)
+                            - np.float32(0.5)) * np.float32(0.3)).astype(
+                                np.float32)
+
+
+@pytest.mark.parametrize("mode", ["wide", "stop_on_overflow", "bits_hi",
+                                  "no_ring", "no_ring_wide", "no_ring_dual"])
+def test_mega_kernel_modes_equal_plain(cuda, monkeypatch, mode):
+    """K2's modes on the card against the plain K2: wide records (one per
+    frame); stop-on-overflow (wide, each record's scan position in lane
+    5), stopped at the first overflow and resumed from its carry; UIC's 47
+    frame bits (the bits_hi plane, planes from make_score_packer through
+    K3); the read without a ring, forced by a shared-memory budget of 0,
+    compact and wide with stop-on-overflow, and where no ring holds the
+    dual layout's scan window (2 baud)."""
+    from minimodem_tpu_torch.ops import mega_rx
+    from minimodem_tpu_torch.ops.correlate import Correlator
+    from minimodem_tpu_torch.ops.device_rx import _round_up_pow2
+
+    kw = {}
+    if mode in ("wide", "stop_on_overflow", "no_ring", "no_ring_wide"):
+        cfg, wav, _ = next(c for c in _cases() if c[0] == "gap")[1:]
+        kw = {"compact": mode == "no_ring",
+              "stop_on_overflow": mode in ("stop_on_overflow",
+                                           "no_ring_wide")}
+        if mode.startswith("no_ring"):
+            monkeypatch.setattr(mega_rx, "SMEM_MAX", 0)
+    elif mode == "bits_hi":
+        cfg, wav = _uic_signal("train", 30, 11)
+        kw = {"compact": False}
+    else:
+        cfg, wav = _slow_dual(12)
+    totals = [len(wav), len(wav) * 3 // 4]
+    t_total = _round_up_pow2(len(wav) + cfg.nsamples_overscan + 1)
+    k3 = Correlator.launches + Correlator.batch_launches
+    key, planes = _k1_planes(cuda, cfg, [wav[:n] for n in totals], t_total)
+    if mode == "bits_hi":
+        assert Correlator.launches + Correlator.batch_launches > k3
+        assert planes.shape[1] == 4
+    k, mega = _k2_equals_plain(key, planes, totals, **kw)
+    assert (mega.ring.stages == 0) == mode.startswith("no_ring")
+    assert int(k[1].sum()) >= 2
+    if kw.get("stop_on_overflow"):
+        ci, cf = k[4].clone(), k[5]
+        assert (ci[:, 5] == 1).all()
+        ci[:, 5] = 0
+        _k2_equals_plain(key, planes, totals, carry=(ci, cf), **kw)
+
+
+@pytest.mark.parametrize("case", ["uic", "float64", "20baud", "1baud"])
+def test_score_packer_cuda_equals_cpu(cuda, case):
+    """make_score_packer, the planes of the geometries K1 does not serve,
+    on the card and on the CPU, two noisy streams of the geometry's own
+    signal.  K3 (UIC, 20 baud) and the float64 chain are the same IEEE ops
+    on both, bit for bit; on the FFT route (1 baud, a window around its
+    first frame) the frame bits are equal and the confidence and amplitude
+    planes within rtol 5e-4, atol 1e-4 (tests/test_torch_device_rx_wide.py
+    holds the port's FFT route to the JAX package's at the same
+    tolerance)."""
+    from minimodem_tpu_torch.models.presets import bell_like
+    from minimodem_tpu_torch.ops.correlate import Correlator
+    from minimodem_tpu_torch.ops.device_rx import (
+        device_rx_key, geo_from_key, make_score_packer_planes)
+    from minimodem_tpu_torch.ops.fused_score import serves
+    from minimodem_tpu_torch.utils.cfloat import f32
+
+    rng = np.random.default_rng(13)
+    start = 0
+    if case == "uic":
+        cfg, wav = _uic_signal("ground", 6, 13)
+    else:
+        baud, rate, kw = {"float64": (1200, 24000, {"mark_f": f32(1200),
+                                                    "space_f": f32(2400)}),
+                          "20baud": (20, 48000, {}),
+                          "1baud": (1, 48000, {})}[case]
+        pre = bell_like(baud, rate, **kw)
+        m = _modem("1200")
+        m.preset, m.cfg = pre, pre.cfg
+        cfg, wav = pre.cfg, m.modulate(b"ab")
+        start = 40000 if case == "1baud" else 0   # 1 baud: frame at 48000
+    key = device_rx_key(cfg)
+    geo = geo_from_key(key)
+    assert not serves(geo)
+    t_total = 1 << 14
+    x = np.zeros((2, t_total + geo.halo), np.float32)
+    for row in x:
+        seg = wav[start:start + x.shape[1]]
+        row[:len(seg)] = seg + (rng.random(len(seg), dtype=np.float32)
+                                - np.float32(0.5)) * np.float32(0.3)
+    packer, n_planes = make_score_packer_planes(key, t_total, "float32")
+    k3 = Correlator.launches + Correlator.batch_launches
+    got = packer(torch.from_numpy(x).to(cuda)).cpu().numpy()
+    ref = packer(torch.from_numpy(x)).numpy()
+    assert got.shape == (2, n_planes, t_total)
+    assert np.count_nonzero(ref[:, 0]) > 0
+    if case in ("uic", "20baud"):
+        assert Correlator.launches + Correlator.batch_launches == k3 + 1
+    if case == "1baud":
+        np.testing.assert_array_equal(got[:, 2], ref[:, 2])
+        np.testing.assert_allclose(got[:, :2].view(np.float32),
+                                   ref[:, :2].view(np.float32),
+                                   rtol=5e-4, atol=1e-4)
+    else:
+        np.testing.assert_array_equal(got, ref)
 
 
 def test_pipelined_cuda_equals_cpu(cuda):

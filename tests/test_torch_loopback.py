@@ -208,10 +208,54 @@ def test_sched_pad_matches_jax():
         assert _sched_pad(n) == jax_pad(n)
 
 
-def test_unserved_geometry_names_queue_1_item_8():
+def _uic_schedule(rng, n_frames):
+    """Raw UIC-751-3 bits: mark leader, n_frames telegrams (the sync
+    pattern 11110010, then 39 seeded data bits), mark trailer."""
+    bits = [1] * 8
+    for _ in range(n_frames):
+        data = int(rng.integers(0, 1 << 39))
+        bits += [1, 1, 1, 1, 0, 0, 1, 0] + [(data >> i) & 1
+                                            for i in range(39)]
+    return np.asarray(bits + [1] * 8, np.uint8)
+
+
+def test_uic_loopback_matches_jax(sequential_xla):
+    """UIC-751-3 (39 data bits, 47 frame bits), which the loopback once
+    refused: wide records with the bits_hi plane, as the JAX loopback
+    returns them.  Types, frame bits, starts and counts equal, the float
+    lanes (frame confidence and amplitude, NOCARRIER totals) within RTOL /
+    ATOL, and both render the same telegrams."""
+    import io
+
+    from minimodem_tpu.ops.device_rx import DeviceLoopback as JaxLoopback
+    from minimodem_tpu_torch.codecs import get_codec
+    from minimodem_tpu_torch.config import RxOptions
     from minimodem_tpu_torch.models.modem import FskModem as TorchModem
     from minimodem_tpu_torch.ops.device_rx import DeviceLoopback
+    from minimodem_tpu_torch.rx.engine import Receiver
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        DeviceLoopback(TorchModem("uic-train", device="cpu").cfg,
-                       device="cpu")
+    cfg = TorchModem("uic-train", device="cpu").cfg
+    rng = np.random.default_rng(7)
+    scheds = [_uic_schedule(rng, 12), _uic_schedule(rng, 9)]
+    ref = JaxLoopback(FskModem("uic-train").cfg).run_events_batch(scheds)
+    got = DeviceLoopback(cfg, device="cpu").run_events_batch(scheds)
+    assert len(got) == len(ref) == 2
+    rendered = []
+    for (tt, tp), (jt, jp) in zip(got, ref):
+        np.testing.assert_array_equal(tt, jt)
+        floats = np.zeros(tp.shape, bool)
+        floats[tt == 2, 1:3] = True
+        floats[tt == 0, 2:4] = True
+        np.testing.assert_array_equal(tp[~floats], jp[~floats])
+        np.testing.assert_allclose(tp[floats].view(np.float32),
+                                   jp[floats].view(np.float32),
+                                   rtol=RTOL, atol=ATOL)
+        outs = []
+        for ev in ((tt, tp), (jt, jp)):
+            out, err = io.BytesIO(), io.StringIO()
+            Receiver(cfg, RxOptions(), get_codec("uic-train"), out.write,
+                     err.write, device="cpu").render_events(*ev)
+            outs.append((out.getvalue(), err.getvalue()))
+        assert outs[0] == outs[1]
+        rendered.append(outs[0][0])
+    assert [r.count(b"Train ID") for r in rendered] == [12, 9]

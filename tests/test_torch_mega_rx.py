@@ -264,28 +264,79 @@ def test_wrapper_runs_plain_only_on_cpu():
         M.MegaRx(st)(planes.to("meta"), *args)
 
 
-@pytest.mark.parametrize("mode,why", [
-    ("uic-train", "more than 8 data bits"),
-])
-def test_unserved_geometry_names_roadmap_item(mode, why):
-    from minimodem_tpu_torch.models.modem import FskModem as TorchModem
-    from minimodem_tpu_torch.ops.mega_rx import MegaReceiver
+@pytest.mark.parametrize("mode", ["uic-train"])
+def test_wide_geometry_on_jax_planes_matches_device_receiver(mode):
+    """More than 8 data bits (UIC, once refused): the port's K2 in wide
+    mode, fed the JAX package's planes with the bits_hi plane, gives the
+    JAX DeviceReceiver's wide records and carry bit for bit."""
+    from minimodem_tpu.ops import device_rx as D
+    from minimodem_tpu.ops.tx import ToneGenerator
+    from minimodem_tpu.sigio import SampleFormat
+    from minimodem_tpu_torch.ops.device_rx import _collect, device_rx_key
+    from minimodem_tpu_torch.ops.mega_rx import (MegaReceiver, MegaRx,
+                                                 MegaStatics)
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 8") as e:
-        MegaReceiver(TorchModem(mode).cfg)
-    assert why in str(e.value)
+    cfg = FskModem(mode).cfg
+    rng = np.random.default_rng(3)
+    gen = ToneGenerator(cfg.sample_rate, SampleFormat.FLOAT)
+    bits = [1] * 8
+    for _ in range(6):
+        data = int(rng.integers(0, 1 << 39))
+        bits += [1, 1, 1, 1, 0, 0, 1, 0] + [(data >> i) & 1
+                                            for i in range(39)]
+    for v in bits + [1] * 8:
+        gen.tone(float(cfg.mark_f if v else cfg.space_f), cfg.bit_nsamples_tx)
+    wav = gen.synthesize().astype(np.float32)
+    (ref_t, ref_p), = D.DeviceReceiver(cfg).run_events_batch(
+        wav[None, :], [len(wav)], THR, LIM)[0]
+    key = device_rx_key(cfg)
+    t_total = D._round_up_pow2(len(wav) + cfg.nsamples_overscan + 1)
+    x = np.zeros(t_total + D.geo_from_key(key).halo, np.float32)
+    x[:len(wav)] = wav
+    import jax
+    import jax.numpy as jnp
+
+    packed = np.asarray(jax.jit(D.make_score_packer(key, t_total, "float32"))(
+        jnp.asarray(x))).view(np.int32)
+    planes = packed[[0, 2, 4, 5]]            # cd, ad, bits_lo, bits_hi
+    st = MegaStatics.build(key, t_total, False, compact=False)
+    assert st.bits_hi and st.n_planes == 4
+    ci, cf = MegaReceiver.carry_to_arrays(None, 1)
+    out = MegaRx(st)(torch.from_numpy(planes)[None],
+                     torch.tensor([len(wav)], dtype=torch.int32), (THR, LIM),
+                     torch.from_numpy(ci), torch.from_numpy(cf), True)
+    got_t, got_p = _collect(out[:4], 1, False)[0]
+    np.testing.assert_array_equal(got_t, ref_t)
+    np.testing.assert_array_equal(got_p, ref_p)
+    frames = got_t == 0
+    assert frames.sum() == 6 and (got_p[frames, 1] != 0).any()   # bits_hi
 
 
-def test_float64_geometry_names_roadmap_item():
-    """Perfect-capable geometries score in float64 in the JAX package."""
+def test_float64_geometry_matches_jax():
+    """Perfect-capable geometries score in float64 in the JAX package
+    (once refused here): MegaReceiver decodes them on the CPU with the
+    JAX DeviceReceiver's events and bytes, confidence=inf included."""
+    from minimodem_tpu.models.presets import bell_like as jax_bell
+    from minimodem_tpu.ops.device_rx import DeviceReceiver
     from minimodem_tpu_torch.models.presets import bell_like
     from minimodem_tpu_torch.ops.mega_rx import MegaReceiver
 
+    jcfg = jax_bell(1200.0, 24000).cfg
+    jcfg.mark_f, jcfg.space_f = np.float32(1200), np.float32(2400)
+    jcfg.finalize()
     cfg = bell_like(1200.0, 24000).cfg
     cfg.mark_f, cfg.space_f = np.float32(1200), np.float32(2400)
     cfg.finalize()
-    with pytest.raises(NotImplementedError, match="float64"):
-        MegaReceiver(cfg)
+    m = FskModem("1200", sample_rate=24000)
+    m.cfg = jcfg
+    wav = m.modulate(b"rate perfect")
+    ref, _ = DeviceReceiver(jcfg).run_events_batch(
+        wav[None, :], [len(wav)], THR, LIM)
+    got, _ = MegaReceiver(cfg, device="cpu").run_events_batch(
+        wav[None, :], [len(wav)], THR, LIM)
+    _assert_events_equal(got[0], ref[0])
+    assert bytes(got[0][2]) == b"rate perfect"
+    assert np.isinf(got[0][1][-1, 1:2].view(np.float32)).all()
 
 
 # ----------------------------------------------------------------------
@@ -384,20 +435,21 @@ def _ring_rule(st):
 
 @pytest.mark.parametrize("rate", [8000, 24000, 48000])
 def test_ring_geometry_covers_every_served_preset(rate):
-    """For every preset K2 serves, the ring's G and S cover a scan window
-    plus one advance, fit the CTA's shared memory, and hold every plane
-    exactly when a covering ring of every plane fits."""
+    """For every preset (K2 serves them all), the ring's G and S cover a
+    scan window plus one advance, fit the CTA's shared memory, and hold
+    every plane exactly when a covering ring of every plane fits (UIC's
+    bits_hi plane is read from global memory, never held)."""
     from minimodem_tpu_torch.models.presets import PRESETS
     from minimodem_tpu_torch.ops import mega_rx as M
     from minimodem_tpu_torch.ops.device_rx import device_rx_key
 
     served = 0
     for name, make in PRESETS.items():
-        key = device_rx_key(make(sample_rate=rate).cfg)
-        if M.unsupported_reason(key) is not None:
-            continue
+        cfg = make(sample_rate=rate).cfg
+        key = device_rx_key(cfg)
         served += 1
-        st = M.MegaStatics.build(key, 1 << 16, False)
+        st = M.MegaStatics.build(key, 1 << 16, False,
+                                 compact=cfg.n_data_bits <= 8)
         ring = M.ring_geometry(st)
         _, need = _ring_rule(st)
         n_all = 5 if st.dual else 3
@@ -409,23 +461,25 @@ def test_ring_geometry_covers_every_served_preset(rate):
             M.ring_smem_bytes(n_all, ring.stages) <= 232448), name
         assert ring.n_held == (n_all if ring.hold_all else n_all - 2), name
         assert ring.hold_all, name            # every preset fits whole
-    assert served == 9
+    assert served == len(PRESETS) == 11
 
 
 @pytest.mark.parametrize("baud,sync", [(30, False), (10, False), (4.5, False),
                                        (4.5, True)])
 def test_ring_geometry_slow_bauds(baud, sync):
-    """Slow geometries K2 serves, up to its widest scan window (4.5 baud
-    at 48 kHz, ~16000 samples), in the single and the dual layout: the
-    ring holds the confidence plane(s) only, covers an advance where that
-    fits, and always holds a scan window within the shared memory."""
+    """Slow geometries of the JAX megakernel's route, up to its widest
+    scan window (4.5 baud at 48 kHz, ~16000 samples), in the single and
+    the dual layout: the ring holds the confidence plane(s) only, covers
+    an advance where that fits, and always holds a scan window within the
+    shared memory (tests/test_torch_device_rx_wide.py has the slower
+    bauds, where no ring holds one)."""
     from minimodem_tpu_torch.models.presets import bell_like
     from minimodem_tpu_torch.ops import mega_rx as M
     from minimodem_tpu_torch.ops.device_rx import device_rx_key
 
     kw = {"do_rx_sync": True, "sync_byte": 0xAB} if sync else {}
     key = device_rx_key(bell_like(baud, 48000, **kw).cfg)
-    assert M.unsupported_reason(key) is None
+    assert M.megakernel_route(key)
     st = M.MegaStatics.build(key, 1 << 16, False)
     assert st.dual == sync
     ring = M.ring_geometry(st)

@@ -271,19 +271,28 @@ def test_entry_points_default_to_the_card(entry):
         use()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["-a"], "queue 1 item 9"),
-    (["-a", "--engine", "device"], "queue 1 item 9"),
-])
-def test_unported_features_name_their_roadmap_item(tmp_path, flags, item):
-    path = str(tmp_path / "f.wav")
-    _write_wav(path, FskModem("1200").modulate(b"x"), "pcm16")
-    code, out, err = _run(torch_cli, ["--rx", "--file", path, "1200",
-                                      "--device", "cpu", *flags])
+def test_unported_features_name_their_roadmap_item():
+    """Live audio (--rx without --file) exits 1 with one E: line naming
+    its ROADMAP item."""
+    code, out, err = _run(torch_cli, ["--rx", "1200", "--device", "cpu"])
     assert code == 1 and out == b""
-    assert err.startswith("E: ") and err.count("\n") == 1 and item in err
-    if "-a" in flags:                  # and it names the route that works
-        assert "--engine host" in err
+    assert err.startswith("E: ") and err.count("\n") == 1
+    assert "queue 1 item 9" in err and "--file" in err
+
+
+@pytest.mark.parametrize("flags", [["-a"], ["-a", "--engine", "device"]])
+def test_autodetect_device_engine_matches_jax_cli(tmp_path, flags):
+    """-a on the device engine (the default, and named): the JAX CLI's
+    stdout and stderr, byte for byte."""
+    path = str(tmp_path / "f.wav")
+    wav = np.concatenate([np.zeros(9000, np.float32),
+                          FskModem("1200").modulate(b"autodetect")])
+    _write_wav(path, wav, "pcm16")
+    argv = ["--rx", "--file", path, "1200", *flags]
+    code, out, err = _run(torch_cli, argv + ["--device", "cpu"])
+    assert (code, out, err) == _run(jax_cli, argv)
+    assert code == 0 and out == b"autodetect"
+    assert err.count("### CARRIER") == 1
 
 
 def test_tx_matches_jax_cli(tmp_path):
@@ -309,12 +318,12 @@ def test_geometry_key_and_basis_match_jax(mode):
     from minimodem_tpu_torch.models.modem import FskModem as TorchModem
     from minimodem_tpu_torch.ops import device_rx as TD
     from minimodem_tpu_torch.ops.demod import make_basis
-    from minimodem_tpu_torch.ops.mega_rx import unsupported_reason
+    from minimodem_tpu_torch.ops.mega_rx import megakernel_route
 
     jkey = D.device_rx_key(FskModem(mode).cfg)
     tkey = TD.device_rx_key(TorchModem(mode).cfg)
     assert tkey == jkey
-    assert (unsupported_reason(tkey) is None) == mega_supported(jkey)
+    assert megakernel_route(tkey) == mega_supported(jkey)
     np.testing.assert_array_equal(
         make_basis(TD.geo_from_key(tkey), np.float32),
         D.make_basis(D.geo_from_key(jkey), np.float32))
