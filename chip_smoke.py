@@ -71,10 +71,31 @@ one line each; any failure exits non-zero:
      planes: uic-train (wide records, the bits_hi plane, K3), the float64
      geometry `1200 --samplerate 24000 -M 1200 -S 2400`, 20 baud (K3
      past K1's shared memory), 1 baud (the FFT stage 1, no ring) and 2
-     baud with --sync-byte (the dual layout, no ring).
+     baud with --sync-byte (the dual layout, no ring);
+ 16. streaming: the phase-4 audio read from its WAV in half-second FLOAT
+     reads, as a live capture delivers it, decoded by DeviceStreamReceiver
+     (segment_len 1 << 16) on the card: stdout and stderr equal to the
+     phase-4 --device cpu decode's, K1 and K2 launched once a segment,
+     plain calls 0; the segment count, the per-segment decode wall (p50,
+     p99, max), the real-time factor, a torch.profiler device-busy share,
+     and K1 and K2 at a non-final segment's shape against their plain
+     versions, timed beside their bounds;
+ 17. live audio through StandInAudio, a stand-in client library defined
+     here (the machine has no audio device): `--rx -A 1200` and `--rx -a
+     -A -R 24000 300` on --device cuda, each equal to --device cpu;
+     `--tx -sdev0 1200 --synth-backend jax` into a stand-in sndio device,
+     cuda == cpu sample for sample and decoded back exactly, with the
+     per-chunk synthesis time of the interactive loop; then the JAX
+     package's live soak on the card (tests/test_soak_live.py: 2500 RX
+     sessions and 208 -a bursts), every byte and stats line checked,
+     the growth of the resident set and of torch.cuda.memory_allocated()
+     bounded.  The ctypes calls into a real libasound / libpulse /
+     libsndio are not exercised.
 
 The kernels' JSON summary (each entry with its launches on the device
-engine's file decode and, as loopback_launches, on the loopback), the
+engine's file decode, as loopback_launches on the loopback, and for K1
+and K2 on the streaming, live and soak runs with their times at the
+streaming shape), the
 script's wall and the nvidia-smi line come before the last line, which
 is {"ok": true, "device": {...}}.
 """
@@ -109,8 +130,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def phase(msg: str) -> None:
-    print(msg, flush=True)
+    """One result line, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - T_START:6.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -143,6 +168,26 @@ def cuda_ms(fn, reps: int) -> float:
 
     fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time per call of fn() with its launches queued behind
+    a sleeping kernel (torch.cuda._sleep), so the host's time between
+    launches is off the clock: for a kernel shorter than its wrapper's
+    host cost, where CUDA events around back-to-back calls time the
+    host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(200_000_000)          # ~0.1 s: the queue fills first
     start.record()
     for _ in range(reps):
         fn()
@@ -937,6 +982,514 @@ def geometry_phase(name: str, tmp: str, dev) -> dict:
     return r
 
 
+class StandInAudio:
+    """A stand-in audio client library for a machine without audio
+    devices, shaped like tests/test_soak_live.py's SessionAsound: the
+    libasound and libsndio calls sigio/alsa.py and sigio/sndio.py make.
+    Capture reads a lazy iterator of float32 blocks, so hours of virtual
+    audio never sit in host memory; playback is kept per write.  Installed
+    as `_lib` (with `_tried`) on the port's sigio modules (stand_in)."""
+
+    def __init__(self, blocks=()):
+        import numpy as np
+
+        self._it = iter(blocks)
+        self._buf = np.zeros(0, np.float32)
+        self._off = 0
+        self.itemsize = 4
+        self.device = None
+        self.written = []
+
+    def _capture(self, ptr, count: int) -> int:
+        import ctypes
+
+        import numpy as np
+
+        while len(self._buf) - self._off < count:
+            nxt = next(self._it, None)
+            if nxt is None:
+                break
+            self._buf = np.concatenate([self._buf[self._off:], nxt])
+            self._off = 0
+        n = min(count, len(self._buf) - self._off)
+        raw = np.ascontiguousarray(self._buf[self._off:self._off + n],
+                                   np.float32).tobytes()
+        ctypes.memmove(ptr, raw, len(raw))
+        self._off += n
+        return n
+
+    def _play(self, ptr, nbytes: int) -> None:
+        import ctypes
+
+        import numpy as np
+
+        raw = ctypes.string_at(ptr, nbytes)
+        self.written.append(np.frombuffer(
+            raw, np.int16 if self.itemsize == 2 else np.float32).copy())
+
+    def played(self):
+        import numpy as np
+
+        return np.concatenate(self.written)
+
+    # libasound
+    def snd_pcm_open(self, pcmref, device, direction, mode):
+        self.device = device
+        return 0
+
+    def snd_pcm_set_params(self, pcm, fmt, access, ch, rate, resample,
+                           latency):
+        from minimodem_tpu_torch.sigio.alsa import SND_PCM_FORMAT_S16_LE
+
+        self.itemsize = 2 if fmt == SND_PCM_FORMAT_S16_LE else 4
+        return 0
+
+    def snd_pcm_readi(self, pcm, ptr, count):
+        return self._capture(ptr, count)
+
+    def snd_pcm_writei(self, pcm, ptr, count):
+        self._play(ptr, count * self.itemsize)
+        return count
+
+    def snd_pcm_drain(self, pcm):
+        return 0
+
+    def snd_pcm_close(self, pcm):
+        return 0
+
+    def snd_strerror(self, err):
+        return b"stand-in error"
+
+    # libsndio (S16 only)
+    def sio_open(self, device, mode, nbio):
+        self.device, self.itemsize = device, 2
+        return 1
+
+    def sio_initpar(self, parp):
+        pass
+
+    def sio_setpar(self, hdl, parp):
+        return 1
+
+    def sio_start(self, hdl):
+        return 1
+
+    def sio_write(self, hdl, ptr, nbytes):
+        self._play(ptr, nbytes)
+        return nbytes
+
+    def sio_stop(self, hdl):
+        return 1
+
+    def sio_close(self, hdl):
+        pass
+
+
+@contextlib.contextmanager
+def stand_in(name: str, lib):
+    """The port's sigio.<name> loads `lib` as its client library."""
+    import importlib
+
+    mod = importlib.import_module(f"minimodem_tpu_torch.sigio.{name}")
+    old = mod._lib, mod._tried
+    mod._lib, mod._tried = lib, True
+    try:
+        yield lib
+    finally:
+        mod._lib, mod._tried = old
+
+
+def run_cli_stdin(argv, stdin: bytes):
+    """run_cli_inprocess with `stdin` on sys.stdin (a stream without a
+    descriptor: the transmitter's bulk path)."""
+    class _In:
+        buffer = io.BytesIO(stdin)
+
+    old = sys.stdin
+    sys.stdin = _In()
+    try:
+        return run_cli_inprocess(argv)
+    finally:
+        sys.stdin = old
+
+
+def percentile_ms(walls, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(walls) * 1e3, q))
+
+
+def streaming_phase(wav: str, text: bytes, err_cpu: str, dev) -> dict:
+    """Phase 16: the phase-4 audio read from its WAV in half-second FLOAT
+    reads, as a live capture delivers it, fed to DeviceStreamReceiver
+    (segment_len 1 << 16) and rendered: stdout and stderr equal to the
+    phase-4 --device cpu file decode's, on the card and on the CPU; K1
+    and K2 launched once a segment, plain calls 0; per-segment decode
+    walls, the real-time factor, a torch.profiler device-busy share; K1
+    and K2 at one non-final segment's shape against their plain versions,
+    timed beside their bounds.  -> the numbers."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from minimodem_tpu_torch.codecs import get_codec
+    from minimodem_tpu_torch.config import RxOptions
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.ops.device_rx import (
+        DeviceStreamReceiver, _round_up_pow2, device_rx_key, geo_from_key)
+    from minimodem_tpu_torch.ops.fused_score import (
+        FusedScorer, score_planes_plain)
+    from minimodem_tpu_torch.ops.mega_rx import (
+        MegaReceiver, MegaRx, MegaStatics, mega_rx_plain)
+    from minimodem_tpu_torch.rx.engine import Receiver
+    from minimodem_tpu_torch.sigio import Direction, SampleFormat, open_stream
+
+    cfg = FskModem("1200", device="cpu").cfg
+    stream = open_stream("file", None, Direction.RECORD, SampleFormat.FLOAT,
+                         cfg.sample_rate, 1, "chip_smoke", wav)
+    chunks = []
+    while (c := stream.read(cfg.sample_rate // 2)).size:
+        chunks.append(np.asarray(c, np.float32))
+    stream.close()
+    audio_s = sum(len(c) for c in chunks) / cfg.sample_rate
+
+    def decode(device):
+        out, err = io.BytesIO(), io.StringIO()
+        rx = Receiver(cfg, RxOptions(), get_codec("ascii8"), out.write,
+                      err.write, device=device)
+        sr = DeviceStreamReceiver(cfg, segment_len=1 << 16, device=device)
+        run, walls = sr.rx.run_events_batch, []
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            try:
+                return run(*a, **k)
+            finally:
+                walls.append(time.perf_counter() - t)
+
+        sr.rx.run_events_batch = timed
+        t0 = time.perf_counter()
+        for c in chunks:
+            rx.render_events(*sr.feed(c))
+        rx.render_events(*sr.finish())
+        torch.cuda.synchronize()
+        return out.getvalue(), err.getvalue(), walls, time.perf_counter() - t0
+
+    decode(dev)                                        # warm-up
+    counts = reset_counts()
+    out, err, walls, wall = decode(dev)
+    launches = read_counts(counts)
+    out_c, err_c, _, wall_cpu = decode("cpu")
+    ok = (out == out_c == text and err == err_c == err_cpu
+          and launches["fused_score"] == launches["mega_rx"] == len(walls)
+          and launches["plain"] == 0)
+    phase(f"streaming: {audio_s:.1f} s of audio in {len(chunks)} half-second "
+          f"reads -> DeviceStreamReceiver(segment_len 65536) on the card: "
+          f"{len(walls)} segments, stdout byte-exact {out == text}, == "
+          f"--device cpu {out == out_c}, stderr == phase 4's --device cpu "
+          f"decode {err == err_cpu} (stream on the CPU {err_c == err_cpu}); "
+          f"launches {launches}")
+    if not ok:
+        fail(f"streaming decode disagrees or missed its kernels\n{err}\n"
+             f"{err_c}\n{err_cpu}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode(dev)
+        wall_prof = time.perf_counter() - t0
+    busy = sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()
+               if getattr(e, "device_type", None)
+               == torch.autograd.DeviceType.CUDA) / 1e6
+
+    # K1 and K2 at one non-final segment: [1, t_total + halo]
+    key = device_rx_key(cfg)
+    geo = geo_from_key(key)
+    sr = DeviceStreamReceiver(cfg, segment_len=1 << 16, device=dev)
+    total_nf = sr.segment_len - sr._lookahead + cfg.expect_nsamples
+    t_total = _round_up_pow2(total_nf + cfg.nsamples_overscan + 1)
+    seg = np.concatenate(chunks)[5 * sr.segment_len:][:sr.segment_len]
+    x_np = np.zeros((1, t_total + geo.halo), np.float32)
+    x_np[0, :len(seg)] = seg
+    x = torch.from_numpy(x_np).to(dev)
+    scorer = FusedScorer(geo)
+    planes = scorer(x, t_total)
+    k1_words = int(torch.count_nonzero(
+        planes != score_planes_plain(x, geo, t_total)))
+    if k1_words:
+        fail(f"K1 at the streaming shape: {k1_words} bit-different words")
+    st = MegaStatics.build(key, t_total, False)
+    mega = MegaRx(st)
+    tt = torch.tensor([total_nf], dtype=torch.int32, device=dev)
+    ci_np, cf_np = MegaReceiver.carry_to_arrays(None, 1)
+    ci, cf = torch.from_numpy(ci_np).to(dev), torch.from_numpy(cf_np).to(dev)
+    thr = (1.5, 2.3)
+    same, out_k, out_p = k2_compare(mega, planes, tt, thr, ci, cf, False)
+    if not same:
+        fail("K2 at the streaming shape disagrees with its plain version")
+    k2_words, k2_search = mega_rx_plain.words, int(mega_rx_plain.searches[0])
+    tp0 = time.perf_counter()
+    mega_rx_plain(st, False, planes.cpu().numpy(),
+                  np.asarray([total_nf], np.int32), thr, ci_np, cf_np)
+    k2_plain_ms = (time.perf_counter() - tp0) * 1e3
+    r = {
+        "segments": len(walls), "audio_s": audio_s, "wall_s": wall,
+        "wall_cpu_s": wall_cpu, "launches": launches,
+        "seg_p50_ms": percentile_ms(walls, 50),
+        "seg_p99_ms": percentile_ms(walls, 99),
+        "seg_max_ms": max(walls) * 1e3, "busy_ms": busy * 1e3,
+        "wall_prof_ms": wall_prof * 1e3,
+        "shape": f"[1, {t_total + geo.halo}] -> [1, {planes.shape[1]}, "
+                 f"{t_total}]", "t_total": t_total, "total_nf": total_nf,
+        "k1_ms": cuda_ms(lambda: scorer(x, t_total), 20),
+        "k1_kernel_ms": kernel_device_ms(lambda: scorer(x, t_total), 20,
+                                         "fused_score_kernel"),
+        "k1_queued_ms": queued_ms(lambda: scorer(x, t_total), 20),
+        "k1_plain_ms": cuda_ms(lambda: score_planes_plain(x, geo, t_total),
+                               3),
+        "k1_bound": bound(4 * (t_total + geo.halo
+                               + planes.shape[1] * t_total),
+                          2 * 4 * geo.nb * t_total),
+        "k2_ms": cuda_ms(lambda: mega(planes, tt, thr, ci, cf, False), 20),
+        "k2_kernel_ms": kernel_device_ms(
+            lambda: mega(planes, tt, thr, ci, cf, False), 20,
+            "mega_rx_kernel"),
+        "k2_queued_ms": queued_ms(
+            lambda: mega(planes, tt, thr, ci, cf, False), 20),
+        "k2_plain_ms": k2_plain_ms, "k2_search": k2_search,
+        "k2_bound": bound(4 * k2_words + 32 * int(out_k[1][0])
+                          + int(out_k[3][0]) + 48, 0),
+        "k2_err": float(np.abs(out_k[5].cpu().numpy().astype(np.float64)
+                               - out_p[5]).max()),
+    }
+    return r
+
+
+def live_phase(audio, dev) -> dict:
+    """Phase 17: the live CLI through StandInAudio on the port's sigio:
+    `--rx -A 1200` and `--rx -a -A -R 24000 300` on --device cuda, each
+    equal to --device cpu, with the launch counts of the card's run;
+    `--tx -sdev0 1200 --synth-backend jax` played into the stand-in,
+    cuda == cpu sample for sample and decoded back exactly, and the
+    synthesis time of the interactive loop's chunks on the card.
+    -> the numbers."""
+    import numpy as np
+    import torch
+
+    from minimodem_tpu_torch.codecs import Ascii8Codec
+    from minimodem_tpu_torch.config import TxOptions
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.models.presets import bell_like
+    from minimodem_tpu_torch.ops.tx import Transmitter
+    from minimodem_tpu_torch.sigio import SampleFormat
+    from minimodem_tpu_torch.utils.cfloat import f32
+
+    res = {}
+    dname = torch.device(dev).type
+    # live RX: 20 s of the phase-4 audio, a gap, then its first 5 s again
+    capture = np.concatenate([audio[:20 * 48000], np.zeros(30000, np.float32),
+                              audio[:5 * 48000]])
+
+    def burst(mark, space, payload):
+        m = FskModem("300", sample_rate=24000, device="cpu")
+        m.preset = bell_like(300, 24000, mark_f=f32(mark), space_f=f32(space))
+        m.cfg = m.preset.cfg
+        return m.modulate(payload)
+
+    auto_capture = np.concatenate([
+        np.zeros(30000, np.float32), burst(1200, 2400, b"LIVE AT 1200 "),
+        np.zeros(26000, np.float32), burst(1800, 3000, b"LIVE AT 1800")])
+    for name, argv, cap in (
+            ("live", ["--rx", "-A", "1200"], capture),
+            ("live_autodetect", ["--rx", "-a", "-A", "-R", "24000", "300"],
+             auto_capture)):
+        runs = {}
+        with stand_in("alsa", StandInAudio([cap])):
+            run_cli_inprocess(argv + ["--device", dname])      # warm-up
+        counts = reset_counts()
+        with stand_in("alsa", StandInAudio([cap])):
+            t0 = time.perf_counter()
+            runs["cuda"] = run_cli_inprocess(argv + ["--device", dname])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_counts(counts)
+        with stand_in("alsa", StandInAudio([cap])):
+            runs["cpu"] = run_cli_inprocess(argv + ["--device", "cpu"])
+        rc, out, err = runs["cuda"]
+        ok = (runs["cuda"] == runs["cpu"] and rc == 0 and len(out) > 0
+              and launches["mega_rx"] >= 1 and launches["fused_score"] >= 1
+              and launches["plain"] == 0)
+        phase(f"{name}: minimodem-tpu-torch {' '.join(argv)} through the "
+              f"stand-in ALSA capture ({len(cap) / (24000 if '-a' in argv else 48000):.1f} s): "
+              f"--device cuda == --device cpu {runs['cuda'] == runs['cpu']}; "
+              f"launches {launches}; warm wall {wall * 1e3:.1f} ms; stdout "
+              f"{out[:60]!r}, stderr {err.strip()[-160:]!r}")
+        if not ok:
+            fail(f"{name} disagrees or missed its kernels\n{runs}")
+        res[name] = {"launches": launches, "wall_s": wall,
+                     "audio_s": len(cap) / (24000 if "-a" in argv else 48000)}
+    if b"LIVE AT 1200 LIVE AT 1800" != runs["cuda"][1]:
+        fail(f"live -a decoded {runs['cuda'][1]!r}")
+
+    # interactive TX into a stand-in sndio playback device
+    payload = b"interactive tx on the card\n"
+    played = {}
+    for key, d in (("cuda", dname), ("cpu", "cpu")):
+        with stand_in("sndio", StandInAudio()) as lib:
+            rc, out, err = run_cli_stdin(["--tx", "-sdev0", "1200",
+                                          "--synth-backend", "jax",
+                                          "--device", d], payload)
+            if rc != 0 or lib.device != b"dev0":
+                fail(f"interactive tx --device {d}: rc {rc}, device "
+                     f"{lib.device!r}\n{err}")
+            played[key] = lib.played()
+    m = FskModem("1200", device="cpu")
+    back = m.demodulate(played["cuda"].astype(np.float32)
+                        / np.float32(32768.0))
+    same = np.array_equal(played["cuda"], played["cpu"])
+    # the interactive loop's chunks: one byte, or 1/25 s of idle carrier,
+    # each synthesized on the card and brought back (drain)
+    tx = Transmitter(m.cfg, TxOptions(interactive=True), Ascii8Codec(),
+                     SampleFormat.S16, "jax", dev)
+    byte_walls, idle_walls = [], []
+    for i in range(200):
+        tx.send(65 + i % 26)
+        t0 = time.perf_counter()
+        tx.drain(None)
+        byte_walls.append(time.perf_counter() - t0)
+        tx.idle_tone(m.cfg.sample_rate // 25)
+        t0 = time.perf_counter()
+        tx.drain(None)
+        idle_walls.append(time.perf_counter() - t0)
+    res["tx"] = {"samples": int(played["cuda"].size), "same": same,
+                 "byte_p50_ms": percentile_ms(byte_walls[10:], 50),
+                 "byte_max_ms": max(byte_walls[10:]) * 1e3,
+                 "idle_p50_ms": percentile_ms(idle_walls[10:], 50),
+                 "idle_max_ms": max(idle_walls[10:]) * 1e3}
+    t = res["tx"]
+    phase(f"interactive tx: --tx -sdev0 1200 --synth-backend jax into the "
+          f"stand-in sndio device: {t['samples']} S16 samples, --device cuda "
+          f"== --device cpu {same}, decoded back exact {back == payload}; "
+          f"per chunk on the card (synthesis + copy back, after 10 warm): "
+          f"one byte p50 {t['byte_p50_ms']:.3f} ms, max "
+          f"{t['byte_max_ms']:.3f} ms; 1/25 s idle carrier p50 "
+          f"{t['idle_p50_ms']:.3f} ms, max {t['idle_max_ms']:.3f} ms "
+          f"(the idle tick is 40 ms)")
+    if not (same and back == payload):
+        fail("interactive tx disagrees between cuda and cpu or does not "
+             "decode back")
+    return res
+
+
+# the JAX package's live soak (tests/test_soak_live.py) on the card
+SOAK_SESSIONS = 2500
+SOAK_RSS_BOUND_MB = 256.0
+SOAK_DEVICE_BOUND_MB = 16.0
+
+
+def soak_phase(dev) -> dict:
+    """Phase 17's soak: tests/test_soak_live.py's two soaks on the card,
+    through StandInAudio: SOAK_SESSIONS RX sessions (0.4-1.8 s of silence,
+    then one payload line, ~1.4 h of virtual audio) by `--rx -A 1200`, and
+    SOAK_SESSIONS // 12 bursts by `--rx -a -A -R 24000 300`; every byte in
+    order, one CARRIER and one NOCARRIER per session with the ndata= sum,
+    and the growth of the resident set and of
+    torch.cuda.memory_allocated() between the 10% point and the end
+    bounded.  -> per soak its wall, audio and growths."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from minimodem_tpu_torch.models.modem import FskModem
+
+    def rss_mb() -> float:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e6
+
+    def payload(i: int) -> bytes:
+        return b"SOAK %06d THE QUICK BROWN FOX JUMPS 0123456789\n" % i
+
+    res = {}
+    for name, n, mode, rate, gap, seed, argv in (
+            ("rx", SOAK_SESSIONS, "1200", 48000, (0.4, 1.8), 0x50AC,
+             ["--rx", "-A", "1200"]),
+            ("autodetect", max(10, SOAK_SESSIONS // 12), "300", 24000,
+             (1.0, 2.5), 0xA07D, ["--rx", "-a", "-A", "-R", "24000", "300"])):
+        m = FskModem(mode, sample_rate=rate, device="cpu")
+        rng = np.random.default_rng(seed)
+        mark = {"audio": 0}
+
+        def blocks():
+            for i in range(n):
+                if i == max(1, n // 10):
+                    mark["rss"] = rss_mb()
+                    mark["dev"] = torch.cuda.memory_allocated() / 2**20
+                g = np.zeros(int(rng.uniform(*gap) * rate), np.float32)
+                w = m.modulate(payload(i))
+                mark["audio"] += len(g) + len(w)
+                yield g
+                yield w
+            yield np.zeros(48000, np.float32)
+            mark["audio"] += 48000
+            mark["rss_end"] = rss_mb()
+            mark["dev_end"] = torch.cuda.memory_allocated() / 2**20
+
+        counts = reset_counts()
+        with stand_in("alsa", StandInAudio(blocks())):
+            t0 = time.perf_counter()
+            rc, out, err = run_cli_inprocess(
+                argv + ["--device", torch.device(dev).type])
+            wall = time.perf_counter() - t0
+        launches = read_counts(counts)
+        expected = b"".join(payload(i) for i in range(n))
+        ndata = [int(x) for x in re.findall(r"### NOCARRIER ndata=(\d+)", err)]
+        r = {"sessions": n, "wall_s": wall, "audio_s": mark["audio"] / rate,
+             "rss_growth_mb": mark["rss_end"] - mark["rss"],
+             "dev_growth_mb": mark["dev_end"] - mark["dev"],
+             "dev_end_mb": mark["dev_end"], "launches": launches}
+        ok = (rc == 0 and out == expected
+              and err.count("### CARRIER") == n and len(ndata) == n
+              and sum(ndata) == len(expected)
+              and r["rss_growth_mb"] < SOAK_RSS_BOUND_MB
+              and r["dev_growth_mb"] < SOAK_DEVICE_BOUND_MB
+              and launches["plain"] == 0 and launches["mega_rx"] >= n)
+        phase(f"soak {name}: {n} sessions, {r['audio_s']:.0f} s of virtual "
+              f"audio through {' '.join(argv)} --device cuda in "
+              f"{wall:.1f} s ({r['audio_s'] / wall:.0f}x real time); every "
+              f"byte {out == expected}, CARRIER lines "
+              f"{err.count('### CARRIER')}, NOCARRIER ndata= lines "
+              f"{len(ndata)} summing to {sum(ndata)} of {len(expected)}; RSS "
+              f"growth {r['rss_growth_mb']:.1f} MB (bound "
+              f"{SOAK_RSS_BOUND_MB:.0f}), torch.cuda.memory_allocated growth "
+              f"{r['dev_growth_mb']:.2f} MiB (bound {SOAK_DEVICE_BOUND_MB:.0f}"
+              f", {r['dev_end_mb']:.2f} MiB at the end); launches {launches}")
+        if not ok:
+            fail(f"soak {name} failed: rc {rc}\n{err[-2000:]}")
+        res[name] = r
+    return res
+
+
+def stream_keys(strm, live, soak, k: str, name: str) -> dict:
+    """A kernel's numbers on the streaming and live paths, for the
+    kernels' JSON line."""
+    return {
+        "stream_launches": strm["launches"][name],
+        "live_launches": live["live"]["launches"][name],
+        "live_autodetect_launches": live["live_autodetect"]["launches"][name],
+        "soak_launches": {n: r["launches"][name] for n, r in soak.items()},
+        "stream_ms": strm[k + "_ms"],
+        "stream_kernel_ms": (strm[k + "_queued_ms"]
+                             if strm[k + "_kernel_ms"] is None
+                             else strm[k + "_kernel_ms"]),
+        "stream_queued_ms": strm[k + "_queued_ms"],
+        "stream_plain_ms": strm[k + "_plain_ms"],
+        "stream_bound_ms": strm[k + "_bound"][0],
+        "stream_bound_by": strm[k + "_bound"][1],
+    }
+
+
 def host_engine_split(wav: str, device) -> str:
     """One warm host-engine decode of the file, its wall split between
     chunk scoring (DemodScorer.score: upload, K3, channel math and the
@@ -1455,6 +2008,13 @@ def main() -> int:
         # ---- 15. the geometries K1 does not serve, and K2's new modes ----
         geo_rows = [geometry_phase(g, tmp, dev) for g in GEOMETRIES]
 
+        # ---- 16. streaming: the phase-4 audio in half-second reads ----
+        strm = streaming_phase(wav, text, err_p, dev)
+
+    # ---- 17. live RX, live -a, interactive TX, the soak ----
+    live = live_phase(audio, dev)
+    soak = soak_phase(dev)
+
     # ---- 5. timings ----
     phase(f"time K1 fused_score [1, {t_total + halo}] (tile "
           f"{scorer.tile}, {-(-t_total // scorer.tile)} CTAs): "
@@ -1523,6 +2083,36 @@ def main() -> int:
               f"ms per call, K2 {r['k2_ms']:.3f} ms per call ({card})")
     phase(f"time -a --engine device, retune between bursts: warm wall "
           f"{auto['wall_s'] * 1e3:.1f} ms ({card})")
+    idle = 100 - 100 * strm["busy_ms"] / strm["wall_prof_ms"]
+    phase(f"time streaming, {strm['segments']} segments of 65536 samples "
+          f"({strm['audio_s']:.1f} s audio): decode wall per segment (upload, "
+          f"K1, K2, collect) p50 {strm['seg_p50_ms']:.3f} ms, p99 "
+          f"{strm['seg_p99_ms']:.3f} ms, max {strm['seg_max_ms']:.3f} ms; "
+          f"end to end {strm['wall_s'] * 1e3:.1f} ms = "
+          f"{strm['audio_s'] / strm['wall_s']:.1f}x real time (--device cpu "
+          f"{strm['wall_cpu_s'] * 1e3:.1f} ms); under torch.profiler device "
+          f"busy {strm['busy_ms']:.3f} ms of {strm['wall_prof_ms']:.1f} ms "
+          f"wall (idle {idle:.1f}%) ({card})")
+    phase(f"time at the streaming shape {strm['shape']} (a non-final "
+          f"segment scores {strm['t_total']} offsets for {strm['total_nf']} "
+          f"needed): K1 {fmt_ms(strm['k1_kernel_ms'])} alone "
+          f"(torch.profiler), {strm['k1_queued_ms']:.4f} ms queued behind a "
+          f"sleep (CUDA events, the launches' host time off the clock), "
+          f"{strm['k1_ms']:.4f} ms per call, plain {strm['k1_plain_ms']:.4f} "
+          f"ms, bound {strm['k1_bound'][0]:.4f} ms ({strm['k1_bound'][1]}); "
+          f"K2 {fmt_ms(strm['k2_kernel_ms'])} alone, "
+          f"{strm['k2_queued_ms']:.4f} ms queued, {strm['k2_ms']:.4f} ms "
+          f"per call ({strm['k2_search']} frame searches), plain "
+          f"{strm['k2_plain_ms']:.4f} ms (CPU loop), roofline "
+          f"{strm['k2_bound'][0]:.6f} ms ({strm['k2_bound'][1]}) ({card})")
+    for name in ("live", "live_autodetect"):
+        r = live[name]
+        phase(f"time {name} (warm, in process, stand-in capture): "
+              f"{r['wall_s'] * 1e3:.1f} ms for {r['audio_s']:.1f} s audio = "
+              f"{r['audio_s'] / r['wall_s']:.1f}x real time ({card})")
+    for name, r in soak.items():
+        phase(f"time soak {name}: {r['wall_s']:.1f} s wall for "
+              f"{r['audio_s']:.0f} s of virtual audio ({card})")
 
     # ---- 11. device TX on the card ----
     for r in device_tx_check(dev):
@@ -1639,7 +2229,8 @@ def main() -> int:
          "loopback_ms": lk["k1_ms"], "loopback_kernel_ms": lk["k1_kernel_ms"],
          "loopback_plain_ms": lk["k1_plain_ms"],
          "loopback_bound_ms": lk["k1_bound"][0],
-         "loopback_bound_by": lk["k1_bound"][1]},
+         "loopback_bound_by": lk["k1_bound"][1],
+         **stream_keys(strm, live, soak, "k1", "fused_score")},
         {"name": "mega_rx", "route": "cuda", "source": src + "mega_rx.cu",
          "replaces": "minimodem_tpu/ops/pallas_rx.py:1100",
          "launches": launches["mega_rx"], "max_abs_err": k2_err,
@@ -1657,7 +2248,8 @@ def main() -> int:
          "loopback_ms": lk["k2_ms"], "loopback_kernel_ms": lk["k2_kernel_ms"],
          "loopback_plain_ms": lk["k2_plain_ms"],
          "loopback_bound_ms": lk["k2_bound"][0],
-         "loopback_bound_by": lk["k2_bound"][1]},
+         "loopback_bound_by": lk["k2_bound"][1],
+         **stream_keys(strm, live, soak, "k2", "mega_rx")},
         {"name": "correlate", "route": "cuda", "source": src + "correlate.cu",
          "replaces": "minimodem_tpu/ops/pallas_demod.py:84",
          "launches": host["host"]["launches"],

@@ -233,16 +233,6 @@ def _card_ready(device: str) -> bool:
 
 
 def main(argv=None) -> int:
-    """Run the CLI; features the port does not serve yet exit 1 with one
-    E: line naming their ROADMAP item."""
-    try:
-        return _main(argv)
-    except NotImplementedError as e:
-        sys.stderr.write(f"E: {e}\n")
-        return 1
-
-
-def _main(argv=None) -> int:
     argv = _presplit_optional_args(
         list(sys.argv[1:] if argv is None else argv))
     try:
@@ -273,6 +263,8 @@ def _main(argv=None) -> int:
     sample_fmt = SampleFormat.S16
     sample_rate = 48000
     nchannels = 1
+    sa_backend = "sysdefault"
+    sa_device = None
     tx_amplitude = f32(1.0)
     tx_sin_table_len = 4096
     rx_one = False
@@ -358,8 +350,12 @@ def _main(argv=None) -> int:
         elif opt in ("-R", "--samplerate"):
             sample_rate = _atoi(val)
             assert sample_rate > 0
-        elif opt in ("-A", "--alsa", "-s", "--sndio"):
-            pass    # live audio backends: only --file is ported so far
+        elif opt in ("-A", "--alsa"):
+            sa_backend = "alsa"
+            sa_device = val or None
+        elif opt in ("-s", "--sndio"):
+            sa_backend = "sndio"
+            sa_device = val or None
         elif opt == "--lut":
             tx_sin_table_len = _atoi(val)
         elif opt == "--float-samples":
@@ -542,9 +538,35 @@ def _main(argv=None) -> int:
     ).sanitize()
 
     if filename is None:
-        raise NotImplementedError(
-            "live audio (no --file) is not ported to the PyTorch package "
-            "yet (ROADMAP queue 1 item 9); use --file")
+        # live audio: resolve the system backend up front so a missing
+        # client library is one clear error (reference default chain
+        # pulse->alsa->sndio, src/simpleaudio.c:71-112)
+        import importlib
+
+        from .sigio import system_backend
+
+        if sa_backend == "sysdefault":
+            resolved = system_backend()
+            if resolved is None:
+                sys.stderr.write(
+                    "E: no system audio available on this host (no "
+                    "libpulse-simple, libasound, or libsndio),\n"
+                    "E:   so only the --file mode is supported.\n")
+                return 1
+            sa_backend = resolved
+        else:
+            loaders = {
+                "pulseaudio": "pulse.load_libpulse",
+                "alsa": "alsa.load_libasound",
+                "sndio": "sndio.load_libsndio",
+            }
+            mod_name, fn_name = loaders[sa_backend].split(".")
+            mod = importlib.import_module(f".sigio.{mod_name}", __package__)
+            if getattr(mod, fn_name)() is None:
+                sys.stderr.write(
+                    f"E: the {sa_backend} client library is not available "
+                    "on this host; use --file mode.\n")
+                return 1
 
     # ============== TX ==============
     if tx_mode:
@@ -553,10 +575,13 @@ def _main(argv=None) -> int:
         except ConfigError as e:
             sys.stderr.write(f"E: {e}\n")
             return 1
+        # interactive = live audio output (no --file) — reference:
+        # src/minimodem.c:981-985
+        tx_interactive = filename is None
         tx_opts = TxOptions(
             amplitude=tx_amplitude,
             sin_table_len=tx_sin_table_len,
-            interactive=False,
+            interactive=tx_interactive,
             print_eot=tx_print_eot,
             tx_carrier=txcarrier,
             leader_bits_len=tx_leader_bits_len,
@@ -567,23 +592,34 @@ def _main(argv=None) -> int:
         if synth_backend == "jax" and not _card_ready(device):
             return 1
         try:
-            stream = open_stream("file", None, Direction.PLAYBACK,
-                                 sample_fmt, sample_rate, nchannels,
-                                 "minimodem-tpu", filename)
+            if filename is None:
+                stream = open_stream(sa_backend, sa_device,
+                                     Direction.PLAYBACK, sample_fmt,
+                                     sample_rate, nchannels,
+                                     "minimodem-tpu", "output audio")
+            else:
+                stream = open_stream("file", None, Direction.PLAYBACK,
+                                     sample_fmt, sample_rate, nchannels,
+                                     "minimodem-tpu", filename)
         except (OSError, RuntimeError) as e:
-            sys.stderr.write(f"{filename}: {e}\n")
+            sys.stderr.write(f"{filename or 'audio'}: {e}\n")
             return 1
         txer = Transmitter(cfg, tx_opts, encoder, sample_fmt, synth_backend,
                            device)
         # the reference's stdin loop: select() idle detection + idle
         # carrier, SIGALRM trailer when interactive (minimodem.c:114-250)
-        txer.transmit_stdin(sys.stdin.buffer, stream, False, txcarrier)
+        txer.transmit_stdin(sys.stdin.buffer, stream, tx_interactive,
+                            txcarrier)
         stream.close()
         return 0
 
     # ============== RX ==============
     if not _card_ready(device):
         return 1
+    if filename is None:
+        return _rx_live(cfg, rx_opts, decoder_name, usos, sa_backend,
+                        sa_device, sample_rate, nchannels, rxnoise_factor,
+                        device)
     try:
         stream = open_stream("file", None, Direction.RECORD, sample_fmt,
                              sample_rate, nchannels, "minimodem-tpu", filename)
@@ -656,6 +692,75 @@ def _main(argv=None) -> int:
     else:
         ret = rxer.run(samples, engine=engine, in_encoding=in_encoding)
     return -ret if ret < 0 else ret
+
+
+def _rx_live(cfg, rx_opts, decoder_name, usos, sa_backend, sa_device,
+             sample_rate, nchannels, rxnoise_factor: float = 0.0,
+             device: str = "cuda") -> int:
+    """Live RX from a system audio capture stream: half-second reads feed
+    the streaming receiver on `device`; SIGINT stops cleanly with the
+    final stats (reference: src/minimodem.c:368-374, 1135-1174)."""
+    from .ops.device_rx import DeviceStreamReceiver
+    from .rx.engine import Receiver
+
+    try:
+        stream = open_stream(sa_backend, sa_device, Direction.RECORD,
+                             SampleFormat.FLOAT, sample_rate, nchannels,
+                             "minimodem-tpu", "input audio")
+    except (OSError, RuntimeError) as e:
+        sys.stderr.write(f"audio: {e}\n")
+        return 1
+    if rxnoise_factor != 0.0:
+        # the reference sets rxnoise on the RX stream whether file or
+        # live (src/minimodem.c:1031-1032)
+        stream.set_rxnoise(rxnoise_factor)
+    try:
+        cfg.finalize()
+    except ConfigError as e:
+        sys.stderr.write(f"E: {e}\n")
+        return 1
+    if decoder_name == "baudot":
+        codec = get_codec("baudot", usos=usos)
+    else:
+        codec = get_codec(decoder_name)
+    out = sys.stdout.buffer
+
+    def write_out(b: bytes) -> None:
+        out.write(b)
+        out.flush()
+
+    rxer = Receiver(cfg, rx_opts, codec, write_out, device=device)
+    if rx_opts.carrier_autodetect_threshold > 0.0:
+        # -a on a live stream: the reference's autodetect runs on any
+        # RECORD source (src/minimodem.c:1179-1220); run_live_autodetect
+        # takes the chunk feed as it comes
+        def live_chunks():
+            while True:
+                c = stream.read(sample_rate // 2)
+                if c.size == 0:
+                    return
+                yield np.asarray(c, np.float32)
+
+        rxer.run_live_autodetect(live_chunks())
+        stream.close()
+        return 0
+    sr = DeviceStreamReceiver(
+        cfg, rx_opts.precision, rx_opts.rx_one,
+        segment_len=1 << 16,            # ~1.4 s decode latency at 48 kHz
+        conf_threshold=float(rx_opts.confidence_threshold),
+        conf_search_limit=float(rx_opts.confidence_search_limit),
+        device=device)
+    try:
+        while True:
+            chunk = stream.read(sample_rate // 2)
+            if chunk.size == 0:
+                break
+            rxer.render_events(*sr.feed(np.asarray(chunk, np.float32)))
+    except KeyboardInterrupt:
+        pass
+    rxer.render_events(*sr.finish())
+    stream.close()
+    return 0
 
 
 def _profiled(profile_dir: str, device: str, fn, *args, **kw):

@@ -20,6 +20,10 @@ rx/engine.py renders them.  Decisions replay the reference's sequential
 receive loop (reference: src/minimodem.c:1137-1463, src/fsk.c:449-538)
 and match the JAX package event for event.
 
+PipelinedReceiver cuts a known-length stream into carried segments;
+DeviceStreamReceiver takes audio as it arrives (live RX, live -a) and
+decodes each whole segment with the carry of the one before.
+
 DeviceLoopback puts device synthesis (ops/tx_device.py) in front of the
 scorer and K2: bit schedules go up, events come back, and the audio never
 crosses the host link.
@@ -526,6 +530,144 @@ class PipelinedReceiver:
                 cf = out[5]
                 pending = upload(i + 1)
             yield _collect(out[:4], 1, self.compact)[0]
+
+
+class DeviceStreamReceiver:
+    """Streaming decode (minimodem_tpu/ops/device_rx.py:1776-1911): feed()
+    audio of any size; events come out as whole segments decode; finish()
+    flushes the final stats.  The state machine's carry crosses segments
+    (the analogue of the reference's sliding samplebuf, reference:
+    src/minimodem.c:1144-1174, for unbounded streams in bounded device
+    memory).  Each segment is one DeviceReceiver call on `device`: the
+    scorer (K1 where it serves the geometry) and K2."""
+
+    def __init__(self, cfg: ModemConfig, precision: str = "auto",
+                 rx_one: bool = False, segment_len: int = 1 << 19,
+                 conf_threshold: float = 1.5,
+                 conf_search_limit: float = 2.3,
+                 stop_on_overflow: bool = False,
+                 initial_carry: dict = None, device=_device.DEFAULT):
+        from ..utils.cfloat import trunc_i
+
+        # compact events + bytes where eligible: their byte positions are
+        # per segment, so feed() rebases the CARRIER / NOCARRIER
+        # byte-position lanes onto the byte stream it returns.
+        # stop_on_overflow (-a) keeps wide records, whose lane 5 holds the
+        # scan position
+        self.rx = DeviceReceiver(
+            cfg, precision, rx_one,
+            compact="auto" if not stop_on_overflow else False,
+            stop_on_overflow=stop_on_overflow, device=device)
+        self.compact = self.rx.compact
+        # lane 5 is segment-relative; rebase it to the fed stream so -a
+        # can replay the samplebuf phase
+        self._rebase_pos_lane = stop_on_overflow
+        self.consumed_total = 0
+        self.cfg = cfg
+        geo = geometry_from_config(cfg, precision)
+        # a non-final segment is scanned only while every score it reads
+        # came from real samples: the frame search reads offsets
+        # [pos, pos + W) whose windows reach `halo` samples further
+        scan_w = trunc_i(cfg.nsamples_per_bit) + cfg.nsamples_overscan + 1
+        self._lookahead = geo.halo + scan_w
+        self.segment_len = max(segment_len,
+                               4 * (self._lookahead + cfg.expect_nsamples))
+        self.thr = conf_threshold
+        self.lim = conf_search_limit
+        # a caller's carry seeds the state machine mid-stream (the -a
+        # re-arm: no-confidence counters persist across detection,
+        # reference src/minimodem.c:1280-1297); its pos must be 0 in this
+        # receiver's fed-stream coordinates
+        self._carry = initial_carry
+        self._buf = np.zeros(0, np.float32)
+        self._done = False
+
+    def _process(self, samples: np.ndarray, finalize: bool):
+        if finalize:
+            total = len(samples)
+        else:
+            total = max(
+                0, len(samples) - self._lookahead + self.cfg.expect_nsamples)
+            total = min(total, len(samples))
+        events, carry = self.rx.run_events_batch(
+            samples[None, :], [total], self.thr, self.lim,
+            self._carry, finalize)
+        # the carry changes only once a whole call has returned: after an
+        # interrupt, finish() redoes the tail from a consistent state
+        self._carry = carry
+        if self.compact:
+            return events[0]                    # (et, ep, byte_stream)
+        et, ep = events[0]
+        if self._rebase_pos_lane and len(et):
+            ep = ep.copy()
+            ep[:, 5] = ep[:, 5] + np.uint32(self.consumed_total)
+        return et, ep
+
+    @property
+    def stopped(self) -> bool:
+        """True once a stop condition (rx_one, an overflow) fired."""
+        return self._carry is not None and bool(self._carry["stop"][0])
+
+    @property
+    def abs_pos(self) -> int:
+        """The scan position in fed-stream coordinates."""
+        if self._carry is None:
+            return 0
+        return self.consumed_total + int(self._carry["pos"][0])
+
+    @staticmethod
+    def _concat_compact(parts):
+        """Concatenate per-segment compact tuples, rebasing the
+        byte-position lanes (CARRIER pay[0], NOCARRIER pay[4]) onto the
+        concatenated byte stream, so one render_events call takes it."""
+        evs_t, evs_p, evs_b = [], [], []
+        off = 0
+        for et, ep, by in parts:
+            if len(et):
+                ep = ep.copy()
+                car = et == EV_CARRIER
+                ep[car, 0] += np.uint32(off)
+                ep[~car, 4] += np.uint32(off)
+                evs_t.append(et)
+                evs_p.append(ep)
+            evs_b.append(np.asarray(by, np.uint8))
+            off += len(by)
+        by_all = (np.concatenate(evs_b) if evs_b
+                  else np.zeros(0, np.uint8))
+        if not evs_t:
+            return (np.zeros(0, np.int32), np.zeros((0, 6), np.uint32),
+                    by_all)
+        return np.concatenate(evs_t), np.concatenate(evs_p), by_all
+
+    def feed(self, samples: np.ndarray):
+        """The events of the segments completed so far: (ev_type, ev_pay)
+        wide, or (ev_type, ev_pay, byte_stream) in compact mode."""
+        assert not self._done
+        self._buf = np.concatenate(
+            [self._buf, np.asarray(samples, np.float32)])
+        parts = []
+        while len(self._buf) >= self.segment_len:
+            seg = self._buf[:self.segment_len]
+            parts.append(self._process(seg, finalize=False))
+            # consume up to the carried position; keep the unscanned tail
+            consumed = int(self._carry["pos"][0])
+            if consumed <= 0:
+                break
+            self._buf = self._buf[consumed:]
+            self._carry["pos"] = np.zeros_like(self._carry["pos"])
+            self.consumed_total += consumed
+        if self.compact:
+            return self._concat_compact(parts)
+        if parts:
+            return (np.concatenate([p[0] for p in parts]),
+                    np.concatenate([p[1] for p in parts]))
+        return (np.zeros(0, np.int32), np.zeros((0, 6), np.uint32))
+
+    def finish(self):
+        """Decode the remaining tail and flush the final stats."""
+        assert not self._done
+        self._done = True
+        return self._process(self._buf, finalize=True)
 
 
 def _sched_pad(n_bits: int) -> int:

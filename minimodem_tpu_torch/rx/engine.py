@@ -5,7 +5,8 @@ Counterpart of minimodem_tpu/rx/engine.py.  Three engines:
 - "device" (and "auto"): the state machine runs on the device
   (ops/mega_rx.py); this module renders its event stream.  With carrier
   autodetect (-a) the detection scans run here and each detected burst
-  decodes on the device with the retuned geometry.
+  decodes on the device with the retuned geometry, on a file or on a
+  live feed (run_live_autodetect).
 - "host": chunked scoring (ops/demod.py DemodScorer, the stage-1 kernel
   on CUDA) and a Python replay of the reference's sequential receive loop
   (reference: src/minimodem.c:1137-1463) over the score arrays, including
@@ -363,6 +364,216 @@ class Receiver:
                 carry["conf_total"][0], carry["ampl_total"][0])
         return ret
 
+    def run_live_autodetect(self, chunks) -> int:
+        """-a over a live feed, an iterable of float32 chunks (the JAX
+        package's Receiver.run_live_autodetect, minimodem_tpu/rx/engine.py:
+        376-606); the reference runs autodetect on any RECORD stream
+        (src/minimodem.c:1179-1220).  _run_device_autodetect made
+        incremental: detection iterations run as soon as a half-buffer of
+        audio is there (the reference's blocking sa_read fills every
+        refill except at the end of the stream), and each detected burst
+        decodes on a retuned DeviceStreamReceiver until its no-confidence
+        overflow stop, where the samplebuf replay sets the next probe
+        grid."""
+        from ..ops.device_rx import (
+            EV_NOCARRIER,
+            DeviceStreamReceiver,
+            zero_carry,
+        )
+
+        _device.require(self.device)
+        cfg = self.cfg
+        opts = self.opts
+
+        # samplebuf sizing (reference: src/minimodem.c:1052-1071)
+        nbits = 1 + cfg.nstartbits + cfg.n_data_bits + 1
+        samplebuf_size = int(np.ceil(
+            np.float32(cfg.nsamples_per_bit))) * (nbits + 1)
+        samplebuf_size *= 2
+        if samplebuf_size < cfg.sample_rate // 12:
+            samplebuf_size = cfg.sample_rate // 12
+        half = samplebuf_size // 2
+
+        nspb = cfg.nsamples_per_bit
+        overscan = cfg.nsamples_overscan
+        try_max_c = round_half_up_i(f32_mul(nspb, 0.75)) + overscan
+        try_max_n = trunc_i(nspb) + overscan
+
+        buf = np.zeros(0, np.float32)
+        org = 0                      # absolute position of buf[0]
+        pos = 0
+        nvalid = 0
+        advance = 0
+        ended = False
+        mode_band = None             # (band, b_space) while decoding
+        rs = None
+        rs_origin = 0                # absolute position of rs's stream[0]
+        seg_ev = []                  # events since the handoff
+        ret = 0
+        it = iter(chunks)
+        # the state machine's carry persists across handoffs: the
+        # no-confidence counters survive re-detection (reference
+        # :1280-1297), so the probes after a drop re-run after every
+        # no-confidence iteration, not after a fresh 20-frame overflow
+        carry = zero_carry(1)
+
+        def pump_detect():
+            """Detection iterations until a band is found, the feed
+            starves or the stream ends: (band, b_space), "starved" or
+            None."""
+            nonlocal pos, nvalid, advance, buf, org
+            while True:
+                avail = org + len(buf) - (pos + nvalid)
+                if advance == samplebuf_size:
+                    nvalid = 0
+                    advance = 0
+                if advance:
+                    if advance > nvalid:
+                        return None
+                    pos += advance
+                    nvalid -= advance
+                    advance = 0
+                if nvalid < half:
+                    if not ended and avail < half:
+                        return "starved"
+                    nvalid += min(half, max(0, avail))
+                if nvalid == 0:
+                    return None
+                nscan_f = nspb
+                if float(nscan_f) > cfg.fftsize:
+                    nscan_f = f32(cfg.fftsize)
+                nscan = trunc_i(nscan_f)
+                i = 0
+                band = -1
+                while np.float32(i) + nscan_f <= np.float32(nvalid):
+                    b0 = pos + i - org
+                    band = detect_carrier_band(
+                        buf[b0: b0 + nscan], nscan, cfg.fftsize,
+                        opts.carrier_autodetect_threshold)
+                    if band >= 0:
+                        break
+                    i = trunc_i(np.float32(i) + nscan_f)
+                advance = trunc_i(np.float32(i) + nscan_f)
+                if advance > nvalid:
+                    advance = nvalid
+                if band < 0:
+                    # drop the scanned prefix: live memory stays bounded
+                    keep = max(0, pos - org)
+                    if keep > samplebuf_size:
+                        buf = buf[keep:]
+                        org = pos
+                    continue
+                b_shift = -trunc_i(f32_div(
+                    f32_add(cfg.autodetect_shift,
+                            f32_div(cfg.band_width, 2.0)),
+                    cfg.band_width))
+                if cfg.inverted_freqs:
+                    b_shift *= -1
+                b_space = band + b_shift
+                if b_space < 1 or b_space >= cfg.nbands:
+                    continue
+                advance = 0
+                return (band, b_space)
+
+        def handoff(band, b_space):
+            nonlocal rs, rs_origin, seg_ev, mode_band
+            rcfg = copy.copy(cfg)
+            rcfg.set_tones_by_bandshift(band, b_space - band)
+            self._tuned_b_mark = band
+            seed = {k: np.asarray(v).copy() for k, v in carry.items()}
+            seed["pos"][0] = 0          # rs's stream starts at `pos`
+            seed["stop"][0] = False
+            rs = DeviceStreamReceiver(
+                rcfg, opts.precision, opts.rx_one,
+                segment_len=1 << 16,
+                conf_threshold=float(opts.confidence_threshold),
+                conf_search_limit=float(opts.confidence_search_limit),
+                stop_on_overflow=True, initial_carry=seed,
+                device=self.device)
+            rs_origin = pos
+            seg_ev = []
+            mode_band = (band, b_space)
+
+        def after_stop() -> bool:
+            """Replay the samplebuf over the finished burst and re-arm
+            detection; True when the decode ends entirely."""
+            nonlocal pos, nvalid, mode_band, rs, carry
+            if rs._carry is not None:
+                carry = {k: np.asarray(v).copy()
+                         for k, v in rs._carry.items()}
+                carry["stop"][0] = False
+            ev_t = (np.concatenate([e[0] for e in seg_ev])
+                    if seg_ev else np.zeros(0, np.int32))
+            ev_p = (np.concatenate([e[1] for e in seg_ev])
+                    if seg_ev else np.zeros((0, 6), np.uint32))
+            # lane 5 from fed-stream to absolute coordinates
+            if len(ev_p):
+                ev_p = ev_p.copy()
+                ev_p[:, 5] = ev_p[:, 5] + np.uint32(rs_origin)
+            pos, nvalid = self._replay_samplebuf(
+                pos, nvalid, ev_t, ev_p, rs_origin + rs.abs_pos,
+                try_max_c, try_max_n, samplebuf_size,
+                org + len(buf) if ended else None)
+            if opts.rx_one and any(int(t) == EV_NOCARRIER for t in ev_t):
+                return True
+            mode_band = None
+            rs = None
+            return False
+
+        def render(ev):
+            nonlocal ret
+            if len(ev[0]):
+                seg_ev.append(ev)
+                ret = self.render_events(*ev)
+
+        try:
+            while True:
+                if mode_band is None:
+                    r = pump_detect()
+                    if r == "starved" or (r is None and not ended):
+                        chunk = next(it, None)
+                        if chunk is None or len(chunk) == 0:
+                            ended = True
+                        else:
+                            buf = np.concatenate(
+                                [buf, np.asarray(chunk, np.float32)])
+                        continue
+                    if r is None:
+                        break
+                    handoff(*r)
+                    # feed everything buffered past the handoff position
+                    pending = buf[pos - org:]
+                    if len(pending):
+                        render(rs.feed(pending))
+                    continue
+                # decoding: stream chunks into the retuned receiver
+                if rs.stopped:
+                    if after_stop():
+                        return ret
+                    continue
+                chunk = next(it, None)
+                if chunk is None or len(chunk) == 0:
+                    ended = True
+                    render(rs.finish())
+                    if rs.stopped:
+                        # the overflow fired before the buffered tail ran
+                        # out: re-arm detection over the rest (as the
+                        # file path's outer loop does)
+                        if after_stop():
+                            return ret
+                        continue
+                    return ret
+                chunk = np.asarray(chunk, np.float32)
+                buf = np.concatenate([buf, chunk])
+                render(rs.feed(chunk))
+        except KeyboardInterrupt:
+            pass
+        if rs is not None:
+            ev = rs.finish()
+            if len(ev[0]):
+                ret = self.render_events(*ev)
+        return ret
+
     def _replay_samplebuf(self, pos, nvalid, ev_t, ev_p, pos_end,
                           try_max_c, try_max_n, samplebuf_size, total):
         """Integer replay of the samplebuf advance/refill phase across a
@@ -371,7 +582,9 @@ class Receiver:
         (lane 4), so every iteration's advance can be rebuilt; frames
         advance by fstart + frame_nsamples - overscan, no-confidence
         iterations by the carrier-dependent try_max (reference:
-        :1144-1174, :1236-1251)."""
+        :1144-1174, :1236-1251).  total=None is a live stream not yet at
+        its end, where a blocking refill always grants a full
+        half-buffer."""
         from ..ops.device_rx import EV_CARRIER, EV_FRAME, EV_NOCARRIER
 
         cfg = self.cfg
@@ -388,7 +601,9 @@ class Receiver:
                 cursor += adv
                 nv -= adv
             if nv < half:
-                nv += min(half, max(0, total - (cursor + nv)))
+                avail = half if total is None else max(
+                    0, total - (cursor + nv))
+                nv += min(half, avail)
 
         def try_max():
             return try_max_c if carrier else try_max_n

@@ -7,14 +7,18 @@ small Python protocol with a backend registry.  Data moves as NumPy arrays
 channel checks, the rxnoise fault-injection knob, rate getters — keeps the
 reference's semantics.
 
-A copy of minimodem_tpu/sigio/__init__.py with two backends:
-``file`` reads and writes 19 containers (WAV/FLAC/OGG/AU/RAW/AIFF/CAF/
-W64/RF64/WAVEX/NIST/IRCAM/PVF/HTK/AVR/VOC/SVX/MAT4/MAT5), deterministic
-output (tests depend on byte-identical TX, reference:
-tests/16-verify-tx-consistent); ``benchmark`` is the null device that
-reports samples/sec (reference: src/simpleaudio-benchmark.c).  The live
-backends (PulseAudio, ALSA, sndio) are not ported yet (ROADMAP queue 1
-item 9).
+A copy of minimodem_tpu/sigio/__init__.py.  Backends:
+- ``file``      : 19 containers (WAV/FLAC/OGG/AU/RAW/AIFF/CAF/W64/RF64/
+                  WAVEX/NIST/IRCAM/PVF/HTK/AVR/VOC/SVX/MAT4/MAT5),
+                  deterministic output (tests depend on byte-identical
+                  TX, reference: tests/16-verify-tx-consistent)
+- ``benchmark`` : null device that reports samples/sec
+                  (reference: src/simpleaudio-benchmark.c)
+- ``pulseaudio`` / ``alsa`` / ``sndio`` : live system audio via
+  runtime-loaded libpulse-simple / libasound / libsndio (the reference's
+  configure-time USE_* backends, src/simpleaudio-{pulse,alsa,sndio}.c).
+  ``sysdefault`` picks the first available in the reference's priority
+  order pulse > alsa > sndio (src/simpleaudio.c:83-93).
 """
 
 from __future__ import annotations
@@ -111,14 +115,58 @@ def open_stream(
 ) -> Stream:
     """Open an audio stream on the named backend.
 
-    Mirrors reference src/simpleaudio.c:36-138 dispatch; the file and
-    benchmark backends are ported so far."""
+    Mirrors reference src/simpleaudio.c:36-138 dispatch.
+    """
     if backend == "file":
         from .wavfile import FileStream
         return FileStream(stream_name, direction, fmt, rate, channels)
     if backend == "benchmark":
         from .benchmark import BenchmarkStream
         return BenchmarkStream(stream_name, direction, fmt, rate, channels)
-    raise NotImplementedError(
-        f"the {backend} audio backend is not ported to the PyTorch package "
-        "yet (ROADMAP queue 1 item 9); use --file")
+    if backend == "sysdefault":
+        # reference priority: pulse > alsa > sndio (src/simpleaudio.c:83-93);
+        # the reference picks at configure time, we pick at runtime by
+        # which client library is actually present
+        backend = system_backend()
+        if backend is None:
+            raise RuntimeError(
+                "E: no system audio available on this host (no "
+                "libpulse-simple, libasound, or libsndio); use --file mode.")
+    if backend == "pulseaudio":
+        from .pulse import PulseStream, load_libpulse
+        if load_libpulse() is None:
+            raise RuntimeError(
+                "E: no system audio available on this host (libpulse-simple "
+                "not found); use --file mode.")
+        return PulseStream(device, direction, fmt, rate, channels,
+                           app_name, stream_name)
+    if backend == "alsa":
+        from .alsa import AlsaStream, load_libasound
+        if load_libasound() is None:
+            raise RuntimeError(
+                "E: no system audio available on this host (libasound not "
+                "found); use --file mode.")
+        return AlsaStream(device, direction, fmt, rate, channels)
+    if backend == "sndio":
+        from .sndio import SndioStream, load_libsndio
+        if load_libsndio() is None:
+            raise RuntimeError(
+                "E: no system audio available on this host (libsndio not "
+                "found); use --file mode.")
+        return SndioStream(device, direction, fmt, rate, channels)
+    raise ValueError(f"no such backend: {backend!r}")
+
+
+def system_backend() -> Optional[str]:
+    """First available live-audio backend in the reference's priority
+    order (src/simpleaudio.c:83-93), or None when the host has none."""
+    from .alsa import load_libasound
+    from .pulse import load_libpulse
+    from .sndio import load_libsndio
+    if load_libpulse() is not None:
+        return "pulseaudio"
+    if load_libasound() is not None:
+        return "alsa"
+    if load_libsndio() is not None:
+        return "sndio"
+    return None

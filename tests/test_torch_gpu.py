@@ -454,6 +454,162 @@ def test_pipelined_cuda_equals_cpu(cuda):
     assert outs[1][0] == p1 + b"tail"
 
 
+def _stream_events(cfg, samples, feed_size, device, **kw):
+    from minimodem_tpu_torch.ops.device_rx import DeviceStreamReceiver
+
+    sr = DeviceStreamReceiver(cfg, segment_len=1 << 15, device=device, **kw)
+    run = sr.rx.run_events_batch
+    sr.calls = 0
+
+    def counted(*a, **k):
+        sr.calls += 1
+        return run(*a, **k)
+
+    sr.rx.run_events_batch = counted
+    parts = [sr.feed(samples[off:off + feed_size])
+             for off in range(0, len(samples), feed_size)]
+    parts.append(sr.finish())
+    return parts, sr
+
+
+def _parts_equal(a, b):
+    return len(a) == len(b) and all(
+        len(u) == len(v) and all(np.array_equal(s, t) for s, t in zip(u, v))
+        for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("feed_size", [4096, 30000])
+def test_stream_cuda_equals_cpu_and_oneshot(cuda, feed_size):
+    """DeviceStreamReceiver on the card: per feed the events and bytes of
+    the same stream on the CPU, rendered the one-shot DeviceReceiver's
+    output on the card; K1 and K2 launched once a segment, no plain
+    call."""
+    from minimodem_tpu_torch.codecs import get_codec
+    from minimodem_tpu_torch.config import RxOptions
+    from minimodem_tpu_torch.ops.device_rx import DeviceReceiver
+    from minimodem_tpu_torch.ops.fused_score import (FusedScorer,
+                                                     score_planes_plain)
+    from minimodem_tpu_torch.ops.mega_rx import MegaRx, mega_rx_plain
+    from minimodem_tpu_torch.rx.engine import Receiver
+
+    m = _modem("1200")
+    payload = bytes(33 + (i % 94) for i in range(600))
+    samples = np.concatenate([m.modulate(payload),
+                              np.zeros(30000, np.float32),
+                              m.modulate(b"second carrier")])
+    ref, _ = _stream_events(m.cfg, samples, feed_size, "cpu")
+    FusedScorer.launches = MegaRx.launches = 0
+    score_planes_plain.calls = mega_rx_plain.calls = 0
+    got, sr = _stream_events(m.cfg, samples, feed_size, cuda)
+    assert sr.compact and sr.calls >= 5
+    assert FusedScorer.launches == MegaRx.launches == sr.calls
+    assert score_planes_plain.calls == mega_rx_plain.calls == 0
+    assert _parts_equal(got, ref)
+
+    def render(parts):
+        sink, errs = io.BytesIO(), []
+        rx = Receiver(m.cfg, RxOptions(), get_codec("ascii8"), sink.write,
+                      errs.append, device=cuda)
+        for p in parts:
+            rx.render_events(*p)
+        return sink.getvalue(), "".join(errs)
+
+    (one,), _ = DeviceReceiver(m.cfg, device=cuda).run_events_batch(
+        samples[None], [len(samples)], THR, LIM)
+    assert render(got) == render([one])
+    assert render(got)[0] == payload + b"second carrier"
+
+
+def test_stream_stop_on_overflow_seeded_cuda_equals_cpu(cuda):
+    """The live -a receiver on the card: stop on overflow from a seeded
+    carry, lane 5 rebased, stop flag and carry as on the CPU."""
+    from minimodem_tpu_torch.ops.device_rx import DeviceReceiver
+
+    m = _modem("1200")
+    _, seed = DeviceReceiver(m.cfg, compact=False, stop_on_overflow=True,
+                             device="cpu").run_events_batch(
+        m.modulate(b"seed")[None], [len(m.modulate(b"seed"))], THR, LIM,
+        finalize=False)
+    seed["pos"][0] = 0
+    seed["stop"][0] = False
+    burst = m.modulate(bytes(48 + i % 40 for i in range(300)))
+    samples = np.concatenate([burst, np.zeros(60000, np.float32), burst])
+    runs = [_stream_events(m.cfg, samples, 7000, d, stop_on_overflow=True,
+                           initial_carry={k: v.copy()
+                                          for k, v in seed.items()})
+            for d in ("cpu", cuda)]
+    (ref, sr_c), (got, sr_g) = runs
+    assert _parts_equal(got, ref)
+    assert sr_g.stopped and sr_c.stopped
+    assert sr_g.abs_pos == sr_c.abs_pos and sr_g.consumed_total > 0
+    for k in seed:
+        np.testing.assert_array_equal(sr_g._carry[k], sr_c._carry[k])
+
+
+def test_live_cli_cuda_equals_cpu(cuda):
+    """minimodem-tpu-torch --rx -A through a stand-in capture library:
+    --device cuda prints what --device cpu prints."""
+    import ctypes
+    import sys
+
+    from minimodem_tpu_torch import cli
+    from minimodem_tpu_torch.sigio import alsa
+
+    m = _modem("1200")
+    capture = np.concatenate([m.modulate(b"live on the card"),
+                              np.zeros(40000, np.float32)])
+
+    class Capture:
+        pos = 0
+
+        def snd_pcm_open(self, pcmref, device, direction, mode):
+            return 0
+
+        def snd_pcm_set_params(self, *a):
+            return 0
+
+        def snd_pcm_readi(self, pcm, ptr, count):
+            n = min(count, len(capture) - self.pos)
+            raw = capture[self.pos:self.pos + n].tobytes()
+            ctypes.memmove(ptr, raw, len(raw))
+            self.pos += n
+            return n
+
+        def snd_pcm_drain(self, pcm):
+            return 0
+
+        def snd_pcm_close(self, pcm):
+            return 0
+
+    class _Out:
+        def __init__(self):
+            self.buffer = io.BytesIO()
+
+        def write(self, s):
+            return len(s)
+
+        def flush(self):
+            pass
+
+    results = []
+    old_lib = alsa._lib, alsa._tried
+    try:
+        for dev in ("cpu", "cuda"):
+            alsa._lib, alsa._tried = Capture(), True
+            old = sys.stdout, sys.stderr
+            sys.stdout, sys.stderr = _Out(), io.StringIO()
+            try:
+                rc = cli.main(["--rx", "-A", "1200", "--device", dev])
+                results.append((rc, sys.stdout.buffer.getvalue(),
+                                sys.stderr.getvalue()))
+            finally:
+                sys.stdout, sys.stderr = old
+    finally:
+        alsa._lib, alsa._tried = old_lib
+    assert results[0] == results[1]
+    assert results[1][:2] == (0, b"live on the card")
+
+
 @pytest.mark.parametrize("engine", ["device", "host", "host-native"])
 def test_cli_cuda_equals_cpu(cuda, tmp_path, engine):
     import sys

@@ -234,6 +234,11 @@ def _first_use(entry):
         cls = DeviceReceiver if entry == "DeviceReceiver" else MegaReceiver
         r = cls(m.cfg)
         return r, lambda: r.run_events_batch(wav[None], [len(wav)], 1.5, 2.3)
+    if entry == "DeviceStreamReceiver":
+        from minimodem_tpu_torch.ops.device_rx import DeviceStreamReceiver
+
+        sr = DeviceStreamReceiver(m.cfg)
+        return sr, lambda: sr.finish()
     if entry == "DeviceLoopback":
         from minimodem_tpu_torch.ops.device_rx import DeviceLoopback
         from minimodem_tpu_torch.ops.tx_device import tx_bit_schedule
@@ -256,7 +261,8 @@ def _first_use(entry):
 
 @pytest.mark.parametrize("entry", [
     "FskModem", "Receiver", "ScoreProvider", "DemodScorer", "DeviceReceiver",
-    "PipelinedReceiver", "MegaReceiver", "DeviceLoopback", "Transmitter"])
+    "PipelinedReceiver", "DeviceStreamReceiver", "MegaReceiver",
+    "DeviceLoopback", "Transmitter"])
 def test_entry_points_default_to_the_card(entry):
     """Every public entry point defaults to device="cuda", as the JAX
     package runs on its default accelerator; without a card the first use
@@ -271,13 +277,21 @@ def test_entry_points_default_to_the_card(entry):
         use()
 
 
-def test_unported_features_name_their_roadmap_item():
-    """Live audio (--rx without --file) exits 1 with one E: line naming
-    its ROADMAP item."""
+def test_unported_features_name_their_roadmap_item(monkeypatch):
+    """Live audio is ported (tests/test_torch_live.py): --rx without
+    --file on a host with no audio client library exits 1 with
+    minimodem-tpu's E: lines, which name --file."""
+    import importlib
+
+    for pkg in ("minimodem_tpu", "minimodem_tpu_torch"):
+        for name in ("alsa", "pulse", "sndio"):
+            mod = importlib.import_module(f"{pkg}.sigio.{name}")
+            monkeypatch.setattr(mod, "_lib", None)
+            monkeypatch.setattr(mod, "_tried", True)
     code, out, err = _run(torch_cli, ["--rx", "1200", "--device", "cpu"])
+    assert (code, out, err) == _run(jax_cli, ["--rx", "1200"])
     assert code == 1 and out == b""
-    assert err.startswith("E: ") and err.count("\n") == 1
-    assert "queue 1 item 9" in err and "--file" in err
+    assert err.startswith("E: no system audio") and "--file" in err
 
 
 @pytest.mark.parametrize("flags", [["-a"], ["-a", "--engine", "device"]])
