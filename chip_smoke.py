@@ -91,13 +91,41 @@ one line each; any failure exits non-zero:
      the growth of the resident set and of torch.cuda.memory_allocated()
      bounded.  The ctypes calls into a real libasound / libpulse /
      libsndio are not exercised.
+ 18. the fleet service (minimodem_tpu_torch/parallel/) at world size 1 on
+     NCCL (a localhost store; its init time printed as set-up), with the
+     launch counts set to 0 just before: the two fleet bench rows at
+     their full size (ShardedLoopback at B = 128 x 64.3 s Bell-202,
+     ShardedReceiver on u-law at B = 8 x 30 s; every stream exact) and
+     sharded_decode_step on 16 and on 1 Bell-202 streams of 2^21
+     samples (K1, K2 and both K3 forms launched, plain calls 0); then
+     each kernel at the last shape the fleet gave it (K1 and K2 at the
+     ingest row's 8 streams, K3 at the step's 16 rows and one row)
+     against its plain version on the same inputs, the step's channels
+     against the plain chain bit for bit, the fleet's events against
+     DeviceLoopback's / DeviceReceiver's on the same inputs, and each
+     row's wall beside the single-card wall (in turns, best of 3);
+ 19. the decomposition on the one card: a world of 2 gloo ranks on
+     cuda:0 (NCCL takes one rank per device) decodes ~30 s Bell-202
+     streams at dp = 2 and at sp = 2 (float32 and u-law wires) and SAME
+     at sp = 2, every rank's events equal to the world-size-1 decode,
+     each rank's K1 and K2 launches counted and its device checked, and
+     on each rank K1 at its block or time shard and K2 at its (on sp, the
+     gathered) planes held against their plain versions;
+
+ 20. on a machine with N > 1 cards (only there), the fleet across them,
+     one NCCL rank a card: the dry run on N ranks, then the two fleet
+     rows at N times the one-card batch, and ShardedLoopback at dp = N /
+     ShardedReceiver at (N / 2, 2), their events held against one card's.
 
 The kernels' JSON summary (each entry with its launches on the device
 engine's file decode, as loopback_launches on the loopback, and for K1
 and K2 on the streaming, live and soak runs with their times at the
 streaming shape), the
 script's wall and the nvidia-smi line come before the last line, which
-is {"ok": true, "device": {...}}.
+is {"ok": true, "device": {...}}.  Each entry also has fleet_launches,
+its launches on phase 18's fleet, and K1's and K2's have
+decomposition_launches, per rank and case of phase 19, and
+cards_launches, per rank of phase 20 (empty on one card).
 """
 
 from __future__ import annotations
@@ -1814,6 +1842,467 @@ def stage_split(lb, scheds) -> dict:
             "dispatch_plain_ms": t_disp_plain * 1e3}
 
 
+# ======================================================================
+# 18-19. the fleet service (parallel/)
+# ======================================================================
+
+INGEST_BATCH, INGEST_SECONDS = 8, 30.0      # the root bench.py's fleet ingest
+STEP_BATCH, STEP_LEN = 16, 1 << 21
+DECOMP_BYTES = 3600                         # ~30 s of Bell-202 a stream
+
+
+def cpu_modem(mode: str = "1200"):
+    from minimodem_tpu_torch.models.modem import FskModem
+
+    return FskModem(mode, device="cpu")
+
+
+def best_walls(fns, reps: int) -> list:
+    """Each fn's best wall in seconds over reps rounds, the fns run in
+    turns within a round."""
+    best = [float("inf")] * len(fns)
+    for _ in range(reps):
+        for i, fn in enumerate(fns):
+            t0 = time.perf_counter()
+            fn()
+            best[i] = min(best[i], time.perf_counter() - t0)
+    return best
+
+
+def same_events(a, b) -> bool:
+    """Every part of every stream's event tuple equal."""
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(np.array_equal(p, q) for p, q in zip(x, y))
+        for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def last_inputs():
+    """While the block runs, record the arguments of each kernel's last
+    launch on the card, by wrapper (K1, K2, and K3 one-row / rows), so
+    that each kernel can be held against its plain version at the shapes
+    the path gave it once the path's counts are read (hold_last).
+    -> {kernel name: (wrapper, its bound arguments)}."""
+    import inspect
+
+    from minimodem_tpu_torch.ops.correlate import Correlator
+    from minimodem_tpu_torch.ops.fused_score import FusedScorer
+    from minimodem_tpu_torch.ops.mega_rx import MegaRx
+
+    seen, olds = {}, {}
+
+    def wrap(cls, name_of):
+        old = olds[cls] = cls.__call__
+        sig = inspect.signature(old)
+
+        def call(self, x, *a, **k):
+            if x.device.type == "cuda":
+                args = sig.bind(self, x, *a, **k).arguments
+                seen[name_of(x)] = (self, {n: v for n, v in args.items()
+                                           if n != "self"})
+            return old(self, x, *a, **k)
+
+        cls.__call__ = call
+
+    wrap(FusedScorer, lambda x: "fused_score")
+    wrap(MegaRx, lambda x: "mega_rx")
+    wrap(Correlator, lambda x: ("correlate" if x.shape[0] == 1
+                                else "correlate_batch"))
+    try:
+        yield seen
+    finally:
+        for cls, old in olds.items():
+            cls.__call__ = old
+
+
+def hold_last(seen) -> dict:
+    """Each kernel of `seen` (last_inputs) launched again on its recorded
+    inputs and held against its plain version on the same inputs on the
+    card: K1 and K3 bit for bit (bit-different words; K3's max_abs_err),
+    K2's events, bytes and carry identical (k2_compare, the plain version
+    on a CPU copy).  Call it after the path's counts are read: these
+    launches are not the path's.  -> {name: {"shape", "ok", ...}}."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch.ops.correlate import correlate_plain
+    from minimodem_tpu_torch.ops.fused_score import score_planes_plain
+
+    out = {}
+    for name, (w, a) in sorted(seen.items()):
+        if name == "mega_rx":
+            planes = a["planes"]
+            same = k2_compare(w, planes, a["totals"], a["thr"], a["carry_i"],
+                              a["carry_f"], a["finalize"])[0]
+            out[name] = {"shape": list(planes.shape), "ok": bool(same)}
+            continue
+        x = a["x"]
+        if name == "fused_score":
+            k, p = w(x, a["t_len"]), score_planes_plain(x, w.geo, a["t_len"])
+        else:
+            k = w(x, a["s_len"])
+            p = correlate_plain(x, w.basis(x.device), a["s_len"])
+        words = int(torch.count_nonzero(k.view(torch.int32)
+                                        != p.view(torch.int32)))
+        r = {"shape": f"{list(x.shape)} -> {list(k.shape)}",
+             "words": words, "ok": words == 0}
+        if name != "fused_score":
+            r["max_abs_err"] = float((k.double() - p.double()).abs().max())
+        out[name] = r
+        del k, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def held_line(held: dict) -> str:
+    """hold_last's results, one clause a kernel."""
+    return "; ".join(
+        f"{n} at {r['shape']} == plain {r['ok']}"
+        + (f" ({r['words']} bit-different words"
+           + (f", max_abs_err {r['max_abs_err']}" if "max_abs_err" in r
+              else "") + ")" if "words" in r else "")
+        for n, r in held.items())
+
+
+def fleet_phase(cfg, audio, dev) -> dict:
+    """Phase 18: the fleet at world size 1 on NCCL (a localhost store),
+    through the entry points a user calls: the two fleet bench rows at
+    their full size and sharded_decode_step on 16 and on 1 Bell-202
+    streams of 2^21 samples, with the launch counts set to 0 just before
+    and read just after.  Then each kernel at the last shape the fleet
+    gave it against its plain version on the same inputs (hold_last), the
+    step's channels against the plain chain (correlate_plain, then the
+    channel math) bit for bit, the rows' events against the single-card
+    path's on the same inputs, and the rows' walls beside the single-card
+    walls, in turns, best of 3."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch import bench
+    from minimodem_tpu_torch.codecs import Ascii8Codec
+    from minimodem_tpu_torch.ops.correlate import correlate_plain
+    from minimodem_tpu_torch.ops.demod import (
+        CHANNELS, geometry_from_config, make_basis, score_frame_channels)
+    from minimodem_tpu_torch.ops.device_rx import (
+        DeviceLoopback, DeviceReceiver)
+    from minimodem_tpu_torch.ops.tx_device import tx_bit_schedule
+    from minimodem_tpu_torch.parallel.service import (
+        ShardedLoopback, ShardedReceiver)
+    from minimodem_tpu_torch.parallel.sharding import (
+        make_mesh, sharded_decode_step)
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(device=dev)
+    init_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(SEED + 18)
+    x16 = np.resize(audio, (STEP_BATCH, STEP_LEN)).astype(np.float32)
+    x16 += (rng.random(x16.shape, dtype=np.float32)
+            - np.float32(0.5)) * np.float32(0.6)
+
+    counts = reset_counts()
+    with last_inputs() as seen:
+        rows = {"fleet loopback": bench.fleet_loopback_throughput(
+                    "1200", HEAD_SECONDS, HEAD_BATCH, device=dev),
+                "fleet ingest": bench.fleet_ingest_throughput(
+                    "1200", INGEST_SECONDS, INGEST_BATCH, encoding="ulaw",
+                    repeats=3, device=dev)}
+        steps, step_s = {}, {}
+        for b in (STEP_BATCH, 1):
+            t0 = time.perf_counter()
+            steps[b] = sharded_decode_step(cfg, mesh, x16[:b], STEP_LEN)
+            step_s[b] = time.perf_counter() - t0
+    launches = read_counts(counts)
+    if (min(launches[k] for k in ("fused_score", "mega_rx", "correlate",
+                                  "correlate_batch")) < 1
+            or launches["plain"]):
+        fail(f"fleet launches {launches}")
+    for name, r in rows.items():
+        if not r["decode_exact"]:
+            fail(f"bench {name} does not decode exact")
+    # each kernel at the last shape the fleet gave it (K1 and K2: the
+    # ingest row's u-law batch; K3 rows / one-row: the step at 16 / 1
+    # streams) against its plain version on the same inputs
+    held = hold_last(seen)
+    del seen
+    if set(held) != set(KERNEL_COUNTS) or not all(
+            r["ok"] for r in held.values()):
+        fail(f"fleet kernels against their plain versions: {held}")
+
+    # the step's channels against the plain chain on the same rows: the
+    # plain correlation (K3's plain version), then the channel math
+    geo = geometry_from_config(cfg)
+    basis = torch.from_numpy(make_basis(geo, np.float32)).to(dev)
+    step_words = 0
+    for b, out in steps.items():
+        xs = torch.zeros((b, STEP_LEN + geo.halo), device=dev)
+        xs[:, :STEP_LEN] = torch.from_numpy(x16[:b]).to(dev)
+        ch = score_frame_channels(
+            correlate_plain(xs, basis, STEP_LEN + geo.max_begin), geo,
+            STEP_LEN)
+        step_words += sum(
+            int(np.count_nonzero(out[k].view(np.int32)
+                                 != ch[k].view(torch.int32).cpu().numpy()))
+            for k in CHANNELS)
+        del xs, ch
+    torch.cuda.empty_cache()
+    if step_words:
+        fail(f"sharded_decode_step: {step_words} words differ from the "
+             "plain chain's")
+
+    # the rows' inputs again (bench.py makes them so), each row's events
+    # against the single-card path's, and the walls in turns
+    base = bench._bench_payload(cfg, HEAD_SECONDS)
+    scheds = [tx_bit_schedule(bytes((b + 3 * i) % 94 + 33 for b in base),
+                              cfg, Ascii8Codec()) for i in range(HEAD_BATCH)]
+    flb = ShardedLoopback(cfg, mesh, device=dev)
+    lb = DeviceLoopback(cfg, device=dev)
+    lb_same = same_events(flb.run_events_batch(scheds),
+                          lb.run_events_batch(scheds))
+    lb_walls = best_walls([lambda: flb.run_events_batch(scheds),
+                           lambda: lb.run_events_batch(scheds)], 3)
+
+    modem = cpu_modem()
+    base = bench._bench_payload(cfg, INGEST_SECONDS)
+    waves = [bench._encode_wire(modem.modulate(
+        bytes((b + 5 * i) % 94 + 33 for b in base)), "ulaw")
+        for i in range(INGEST_BATCH)]
+    xu = np.zeros((INGEST_BATCH, max(map(len, waves))), np.uint8)
+    for i, w in enumerate(waves):
+        xu[i, :len(w)] = w
+    totals = [len(w) for w in waves]
+    svc = ShardedReceiver(cfg, mesh, device=dev)
+    dr = DeviceReceiver(cfg, device=dev)
+    ev_f, stats = svc.run_events_batch(xu, totals, 1.5, 2.3, "ulaw")
+    ev_1, _ = dr.run_events_batch(xu, totals, 1.5, 2.3, in_encoding="ulaw")
+    in_same = same_events(ev_f, ev_1)
+    in_walls = best_walls(
+        [lambda: svc.run_events_batch(xu, totals, 1.5, 2.3, "ulaw"),
+         lambda: dr.run_events_batch(xu, totals, 1.5, 2.3,
+                                     in_encoding="ulaw")], 3)
+    if not (lb_same and in_same):
+        fail(f"fleet events differ from the single card's: loopback "
+             f"{lb_same}, ingest {in_same}")
+    return {"init_s": init_s, "rows": rows, "launches": launches,
+            "held": held, "step_words": step_words, "step_s": step_s, "stats": stats,
+            "lb_audio_s": rows["fleet loopback"]["audio_seconds"],
+            "in_audio_s": rows["fleet ingest"]["audio_seconds"],
+            "lb_walls": lb_walls, "in_walls": in_walls}
+
+
+def decomposition_rank(dev_type, xs, totals, xu, same_x,
+                       same_totals) -> dict:
+    """Phase 19's work on one rank of a 2-rank gloo world on cuda:0: the
+    ShardedReceiver decodes at dp = 2 and at sp = 2 (float32 and u-law
+    wires, and SAME's dual layout at sp = 2), each with the rank's K1 and
+    K2 launches and plain calls (counts set to 0 just before, read just
+    after), then K1 on the rank's block or time shard and K2 on its (on
+    sp, the gathered) planes held against their plain versions on the
+    same inputs (hold_last)."""
+    import torch
+    from minimodem_tpu_torch.parallel.service import ShardedReceiver
+    from minimodem_tpu_torch.parallel.sharding import make_mesh
+
+    cases = (("dp=2", 2, 1, "1200", xs, totals, None),
+             ("sp=2", 1, 2, "1200", xs, totals, None),
+             ("sp=2 u-law", 1, 2, "1200", xu, totals, "ulaw"),
+             ("SAME sp=2", 1, 2, "same", same_x, same_totals, None))
+    out = {}
+    for name, dp, sp, mode, x, tot, enc in cases:
+        mesh = make_mesh(dp=dp, sp=sp, device=dev_type)
+        svc = ShardedReceiver(cpu_modem(mode).cfg, mesh, device=dev_type)
+        counts = reset_counts()
+        with last_inputs() as seen:
+            t0 = time.perf_counter()
+            events, stats = svc.run_events_batch(x, tot, 1.5, 2.3, enc)
+            dt = time.perf_counter() - t0
+        n = read_counts(counts)
+        out[name] = (events, stats, dt, n, hold_last(seen))
+        del seen
+    # the rank's device, as make_mesh set it (cuda:{LOCAL_RANK})
+    out["device"] = (str(torch.device("cuda", torch.cuda.current_device()))
+                     if dev_type == "cuda" else dev_type)
+    return out
+
+
+def decomposition_phase(dev) -> dict:
+    """Phase 19: the dp and sp decompositions on the one card, in a world
+    of 2 gloo ranks on cuda:0 (NCCL takes one rank per device), against
+    the world-size-1 decode of phase 18's NCCL world."""
+    import numpy as np
+    from minimodem_tpu_torch.bench import _encode_wire
+    from minimodem_tpu_torch.parallel.launch import spawn_world
+    from minimodem_tpu_torch.parallel.service import ShardedReceiver
+    from minimodem_tpu_torch.parallel.sharding import make_mesh
+
+    def batch(waves, dtype):
+        x = np.zeros((len(waves), max(map(len, waves))), dtype)
+        for i, w in enumerate(waves):
+            x[i, :len(w)] = w
+        return x, [len(w) for w in waves]
+
+    m = cpu_modem()
+    rng = np.random.default_rng(SEED + 19)
+    texts = [rng.integers(33, 127, size=DECOMP_BYTES,
+                          dtype=np.uint8).tobytes()
+             for _ in range(4)]
+    waves = [m.modulate(t) for t in texts]
+    xs, totals = batch(waves, np.float32)
+    xu, _ = batch([_encode_wire(w, "ulaw") for w in waves], np.uint8)
+    same = cpu_modem("same")
+    same_texts = [b"ZCZC-WXR-RWT-020103+0015-", b"ZCZC-EAS-RMT-000000+0100-",
+                  b"NNNN"]
+    same_x, same_totals = batch([same.modulate(t) for t in same_texts],
+                                np.float32)
+
+    mesh = make_mesh(device=dev)
+    ref = {"dp=2": ShardedReceiver(m.cfg, mesh, device=dev)
+           .run_events_batch(xs, totals)[0]}
+    ref["sp=2"] = ref["dp=2"]
+    ref["sp=2 u-law"] = ShardedReceiver(m.cfg, mesh, device=dev) \
+        .run_events_batch(xu, totals, in_encoding="ulaw")[0]
+    ref["SAME sp=2"] = ShardedReceiver(same.cfg, mesh, device=dev) \
+        .run_events_batch(same_x, same_totals)[0]
+    for name, want in (("dp=2", texts), ("SAME sp=2", same_texts)):
+        if [e[2].tobytes() for e in ref[name]] != want:
+            fail(f"world-size-1 {name} decode is not exact")
+
+    # both ranks on this card (cuda:0) on any machine: the children see
+    # only it, so spawn_world gives both local rank 0
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = (visible or "0").split(",")[0]
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_world(decomposition_rank, 2,
+                            (dev.type, xs, totals, xu, same_x, same_totals),
+                            "gloo", timeout=300)
+    finally:
+        if visible is None:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    wall = time.perf_counter() - t0
+    rows = []
+    for name in ref:
+        for r, res in enumerate(ranks):
+            events, stats, dt, n, held = res[name]
+            rows.append({"name": name, "rank": r, "device": res["device"],
+                         "same": same_events(events, ref[name]),
+                         "stats": stats, "wall_s": dt, "launches": n,
+                         "held": held})
+    for row in rows:
+        n, held = row["launches"], row["held"]
+        if (not row["same"] or row["device"] != str(dev)
+                or min(n["fused_score"], n["mega_rx"]) < 1 or n["plain"]
+                or set(held) != {"fused_score", "mega_rx"}
+                or not all(h["ok"] for h in held.values())):
+            fail(f"decomposition {row['name']} rank {row['rank']}: {row}")
+    return {"rows": rows, "spawn_s": wall,
+            "audio_s": sum(totals) / m.cfg.sample_rate}
+
+
+def cards_rank(n, scheds, xs, totals, sizes) -> dict:
+    """One rank of phase 20 (one NCCL rank a card): the two fleet rows
+    at n times the one-card batch (B / n streams a rank: the one-card
+    shape on each card, where phases 13 and 18 held K1 and K2 against
+    their plain versions), with the rank's launches (counts set to 0 just
+    before, read just after); then ShardedLoopback on the headline
+    schedules at dp = n and ShardedReceiver at (n / 2, 2) on ~30 s
+    Bell-202 streams, for the parent to hold against one card.  sizes:
+    the one-card rows' (audio seconds, batch) of the loopback and of the
+    ingest."""
+    import torch
+    from minimodem_tpu_torch import bench
+    from minimodem_tpu_torch.parallel.service import (
+        ShardedLoopback, ShardedReceiver)
+    from minimodem_tpu_torch.parallel.sharding import make_mesh
+
+    cfg = cpu_modem().cfg
+    (lb_s, lb_b), (in_s, in_b) = sizes
+    counts = reset_counts()
+    rows = {"fleet loopback": bench.fleet_loopback_throughput(
+                "1200", lb_s, lb_b * n, device="cuda"),
+            "fleet ingest": bench.fleet_ingest_throughput(
+                "1200", in_s, in_b * n, encoding="ulaw", repeats=3,
+                device="cuda")}
+    launches = read_counts(counts)
+    lb = ShardedLoopback(cfg, make_mesh(dp=n, sp=1, device="cuda"),
+                         device="cuda").run_events_batch(scheds)
+    sp = 2 if n % 2 == 0 else 1
+    rx, stats = ShardedReceiver(
+        cfg, make_mesh(dp=n // sp, sp=sp, device="cuda"),
+        device="cuda").run_events_batch(xs, totals)
+    return {"rows": rows, "launches": launches, "loopback": lb, "sp": rx,
+            "stats": stats, "mesh_sp": (n // sp, sp),
+            "device": str(torch.device("cuda", torch.cuda.current_device()))}
+
+
+def cards_phase(n: int, card: str, dev) -> dict:
+    """Phase 20, on a machine with n > 1 cards: the fleet across them,
+    one NCCL rank a card.  The dry run (parallel/dryrun.py) on n ranks;
+    then a world of n ranks (parallel/launch.py) runs the two fleet rows
+    at n times the one-card batch, and ShardedLoopback / ShardedReceiver
+    (dp = n; (n / 2, 2)) whose events are held against DeviceLoopback /
+    DeviceReceiver on one card; every rank's device is checked to be
+    cuda:{rank}.  -> each rank's launches."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch.ops.device_rx import (
+        DeviceLoopback, DeviceReceiver)
+    from minimodem_tpu_torch.parallel.dryrun import dryrun_multichip
+    from minimodem_tpu_torch.parallel.launch import spawn_world
+
+    cfg = cpu_modem().cfg
+    scheds = headline_sets(cfg, HEAD_BATCH, 1, HEAD_SECONDS)[0][1]
+    ref_lb = DeviceLoopback(cfg, device=dev).run_events_batch(scheds)
+    rng = np.random.default_rng(SEED + 20)
+    waves = [cpu_modem().modulate(rng.integers(
+        33, 127, size=DECOMP_BYTES, dtype=np.uint8).tobytes())
+        for _ in range(2 * n)]
+    xs = np.zeros((len(waves), max(map(len, waves))), np.float32)
+    for i, w in enumerate(waves):
+        xs[i, :len(w)] = w
+    totals = [len(w) for w in waves]
+    ref_rx = DeviceReceiver(cfg, device=dev).run_events_batch(
+        xs, totals, 1.5, 2.3)[0]
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        line = dryrun_multichip(n, device="cuda")
+    phase(f"dry run on {n} cards, one NCCL rank each "
+          f"({time.perf_counter() - t0:.1f} s): {line}")
+    t0 = time.perf_counter()
+    sizes = ((HEAD_SECONDS, HEAD_BATCH), (INGEST_SECONDS, INGEST_BATCH))
+    ranks = spawn_world(cards_rank, n, (n, scheds, xs, totals, sizes),
+                        "nccl", timeout=600)
+    wall = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        lc = res["launches"]
+        ok = (same_events(res["loopback"], ref_lb)
+              and same_events(res["sp"], ref_rx)
+              and res["device"] == f"cuda:{r}"
+              and all(row["decode_exact"] for row in res["rows"].values()))
+        phase(f"rank {r} on {res['device']}: fleet events == one card's "
+              f"(ShardedLoopback dp = {n} on {len(scheds)} streams, "
+              f"ShardedReceiver {res['mesh_sp']} on {len(totals)} x "
+              f"{DECOMP_BYTES} bytes) {ok}; launches {lc}")
+        if not ok or min(lc["fused_score"], lc["mega_rx"]) < 1 \
+                or lc["plain"]:
+            fail(f"rank {r} of the {n}-card fleet")
+        for name, row in res["rows"].items():
+            extra = {k: v for k, v in row.items() if k not in (
+                "mode", "audio_seconds", "wall_seconds", "real_time_factor",
+                "decode_exact")}
+            phase(f"rank {r} bench {name} ({row['mode']}, {extra}): "
+                  f"{row['audio_seconds']:.1f} audio s in "
+                  f"{row['wall_seconds'] * 1e3:.1f} ms = "
+                  f"{row['real_time_factor']:.1f}x real time, decode exact "
+                  f"{row['decode_exact']} ({card})")
+    phase(f"the {n}-card world's start and run {wall:.1f} s")
+    return {"launches": [res["launches"] for res in ranks]}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2198,6 +2687,64 @@ def main() -> int:
           f"plain {lk['k2_plain_ms']:.1f} ms (CPU loop), roofline "
           f"{lk['k2_bound'][0]:.4f} ms ({lk['k2_bound'][1]}) ({card})")
 
+    # ---- 18-19. the fleet service at world size 1, then on two ranks ----
+    fleet = fleet_phase(cfg, audio, dev)
+    fl = fleet["launches"]
+    phase(f"fleet at world size 1 (NCCL, a localhost store; init "
+          f"{fleet['init_s']:.2f} s, set-up): launches with the counts set "
+          f"to 0 before the two fleet rows and sharded_decode_step: K1 "
+          f"{fl['fused_score']}, K2 {fl['mega_rx']}, K3 one-row "
+          f"{fl['correlate']}, K3 rows {fl['correlate_batch']}, plain calls "
+          f"{fl['plain']}; sharded_decode_step [{STEP_BATCH}, {STEP_LEN}] "
+          f"and [1, {STEP_LEN}] (walls {fleet['step_s'][STEP_BATCH]:.3f} "
+          f"and {fleet['step_s'][1]:.3f} s, the first call's scorer "
+          f"set-up included): {fleet['step_words']} words differ from the "
+          f"plain chain's (correlate_plain, then the channel math); fleet "
+          f"events == the single card's (loopback, ingest): True")
+    phase(f"fleet kernels at the fleet's shapes against their plain "
+          f"versions on the same inputs: {held_line(fleet['held'])}")
+    for name, r in fleet["rows"].items():
+        extra = {k: v for k, v in r.items() if k not in (
+            "mode", "audio_seconds", "wall_seconds", "real_time_factor",
+            "decode_exact")}
+        phase(f"bench {name} ({r['mode']}, {extra}): "
+              f"{r['audio_seconds']:.1f} audio s in "
+              f"{r['wall_seconds'] * 1e3:.1f} ms = {r['real_time_factor']:.1f}"
+              f"x real time, decode exact {r['decode_exact']} ({card})")
+    for name, walls, audio_s, single in (
+            ("loopback", fleet["lb_walls"], fleet["lb_audio_s"],
+             "DeviceLoopback"),
+            ("ingest", fleet["in_walls"], fleet["in_audio_s"],
+             "DeviceReceiver")):
+        phase(f"time fleet {name} against the single-card {single} on the "
+              f"same inputs, in turns, best of 3: fleet {walls[0] * 1e3:.2f} "
+              f"ms = {audio_s / walls[0]:.1f}x real time, single card "
+              f"{walls[1] * 1e3:.2f} ms = {audio_s / walls[1]:.1f}x; the "
+              f"service layer's overhead at world size 1 "
+              f"{100 * (walls[0] / walls[1] - 1):+.1f}% ({card})")
+    dec = decomposition_phase(dev)
+    parts = "; ".join(
+        f"{r['name']} rank {r['rank']} ({r['device']}): == world size 1 "
+        f"{r['same']}, K1 {r['launches']['fused_score']}, K2 "
+        f"{r['launches']['mega_rx']}, plain {r['launches']['plain']}, "
+        f"{r['wall_s'] * 1e3:.1f} ms" for r in dec["rows"])
+    phase(f"decomposition on the one card: worlds of 2 gloo ranks on cuda:0 "
+          f"(gloo, because NCCL takes one rank per device), "
+          f"{dec['audio_s']:.1f} s of Bell-202 in 4 streams and SAME in 3; "
+          f"{parts}; the world's start and run {dec['spawn_s']:.1f} s "
+          f"({card})")
+    phase("decomposition kernels on each rank's block or shard against "
+          "their plain versions on the same inputs: " + " | ".join(
+              f"{r['name']} rank {r['rank']}: {held_line(r['held'])}"
+              for r in dec["rows"]))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    # ---- 20. the fleet across the cards, where the machine has several ----
+    n_cards = torch.cuda.device_count()
+    cards = (cards_phase(n_cards, card, dev) if n_cards > 1
+             else {"launches": []})
+
     # K1: the audio row read and the planes written once; 4 * nb FMAs per
     # scored offset (stage 2's comb sums are a few percent more)
     geo1 = scorer.geo
@@ -2226,6 +2773,10 @@ def main() -> int:
          "bound_by": k1_bound[1], "library_ms": None,
          "loopback_launches": lb_launches["fused_score"],
          "autodetect_launches": auto["launches"]["fused_score"],
+         "fleet_launches": fl["fused_score"],
+         "decomposition_launches": [
+             r["launches"]["fused_score"] for r in dec["rows"]],
+         "cards_launches": [r["fused_score"] for r in cards["launches"]],
          "loopback_ms": lk["k1_ms"], "loopback_kernel_ms": lk["k1_kernel_ms"],
          "loopback_plain_ms": lk["k1_plain_ms"],
          "loopback_bound_ms": lk["k1_bound"][0],
@@ -2239,6 +2790,10 @@ def main() -> int:
          "bound_by": k2_bound[1], "library_ms": None,
          "loopback_launches": lb_launches["mega_rx"],
          "autodetect_launches": auto["launches"]["mega_rx"],
+         "fleet_launches": fl["mega_rx"],
+         "decomposition_launches": [
+             r["launches"]["mega_rx"] for r in dec["rows"]],
+         "cards_launches": [r["mega_rx"] for r in cards["launches"]],
          "geometry_launches": {r["name"]: r["launches"]["mega_rx"]
                                for r in geo_rows},
          "geometry_batch_launches": {r["name"]: r["batch_launches"]["mega_rx"]
@@ -2258,7 +2813,7 @@ def main() -> int:
          "bound_ms": k3a["bound_ms"], "bound_by": k3a["bound_by"],
          "library_ms": k3a["library_ms"],
          "library_device_ms": k3a["library_device_ms"],
-         "loopback_launches": 0,
+         "loopback_launches": 0, "fleet_launches": fl["correlate"],
          "geometry_launches": {r["name"]: r["launches"]["correlate"]
                                for r in geo_rows if r["route"] == "K3"}},
         {"name": "correlate_batch", "route": "cuda",
@@ -2271,6 +2826,7 @@ def main() -> int:
          "library_ms": k3b["library_ms"],
          "library_device_ms": k3b["library_device_ms"],
          "loopback_launches": 0,
+         "fleet_launches": fl["correlate_batch"],
          "geometry_batch_launches": {
              r["name"]: r["batch_launches"]["correlate_batch"]
              for r in geo_rows if r["route"] == "K3"}},

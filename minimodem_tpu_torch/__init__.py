@@ -13,6 +13,8 @@ Layers:
 - ops            : TX synthesis (host) + RX scoring and state machine (torch/CUDA)
 - rx             : event rendering (codecs + protocol lines)
 - sigio          : audio stream abstraction + WAV/AU/RAW codec
+- parallel       : the fleet service on torch.distributed: a (dp, sp)
+                   device mesh, sharded scoring and the sharded receivers
 """
 
 __version__ = "0.1.0"

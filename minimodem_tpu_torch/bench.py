@@ -4,9 +4,10 @@ the device engine and the on-device loopback serve.
 
 Counterpart of minimodem_tpu/bench.py: the same rows and result keys, run
 on an explicit `device` (default "cuda"; "cpu" runs the kernels' plain
-versions).  The fleet rows (ShardedLoopback, ShardedReceiver) wait for
-the fleet service (ROADMAP queue 1 item 11).  Without a card a "cuda"
-row raises; nothing falls back to the CPU.
+versions).  The fleet rows run the fleet service (parallel/) on the
+world of ranks the process belongs to, a world of one without a
+launcher.  Without a card a "cuda" row raises; nothing falls back to the
+CPU.
 """
 
 from __future__ import annotations
@@ -285,6 +286,113 @@ def batched_loopback_throughput(mode: str = "1200",
         "batch": batch,
         "pipeline": pipeline,
         "chain": chain,
+        "audio_seconds": audio_sec,
+        "wall_seconds": dt,
+        "real_time_factor": audio_sec / dt,
+        "decode_exact": bool(ok),
+    }
+
+
+def fleet_loopback_throughput(mode: str = "1200",
+                              audio_seconds: float = 64.3,
+                              batch: int = 128, sample_rate: int = 48000,
+                              precision: str = "auto",
+                              device=_device.DEFAULT) -> dict:
+    """The deployment-shape fleet path: ShardedLoopback runs
+    DeviceLoopback's exact per-device program on each rank of a
+    dp = world mesh (parallel/service.py), B / world streams a rank.  At
+    world size 1 it gives the service layer's overhead over the
+    single-card loopback; on a fleet it is the per-device number times
+    the world.  The wall covers the whole call, the result assembly on
+    every rank included."""
+    import torch.distributed as dist
+
+    from .codecs import Ascii8Codec
+    from .models.modem import FskModem
+    from .ops.tx_device import tx_bit_schedule
+    from .parallel.service import ShardedLoopback
+    from .parallel.sharding import make_mesh
+
+    m = FskModem(mode, sample_rate=sample_rate, precision=precision,
+                 device=device)
+    base = _bench_payload(m.cfg, audio_seconds)
+    payloads = [bytes((b + 3 * i) % 94 + 33 for b in base)
+                for i in range(batch)]
+    scheds = [tx_bit_schedule(p, m.cfg, Ascii8Codec()) for p in payloads]
+    audio_sec = (sum(len(s) for s in scheds)
+                 * m.cfg.bit_nsamples_tx / sample_rate)
+
+    mesh = make_mesh(sp=1, device=device)
+    flb = ShardedLoopback(m.cfg, mesh, precision, device=device)
+    events = flb.run_events_batch(scheds)    # kernel build + correctness
+    ok = _render_ok(m.cfg, "ascii8", payloads, events)
+
+    t0 = time.perf_counter()
+    flb.run_events_batch(scheds)
+    dt = time.perf_counter() - t0
+    return {
+        "mode": mode,
+        "batch": batch,
+        "devices": dist.get_world_size(),
+        "audio_seconds": audio_sec,
+        "wall_seconds": dt,
+        "real_time_factor": audio_sec / dt,
+        "decode_exact": bool(ok),
+    }
+
+
+def fleet_ingest_throughput(mode: str = "1200",
+                            audio_seconds: float = 30.0,
+                            batch: int = 8, sample_rate: int = 48000,
+                            precision: str = "auto",
+                            encoding: str = "ulaw",
+                            repeats: int = 3,
+                            device=_device.DEFAULT) -> dict:
+    """The fleet INGEST path: host audio in (u8 telephony wire by
+    default: 1 byte a sample, G.711-expanded on the device), decoded by
+    ShardedReceiver's per-device program (the wire expansion, K1 and K2)
+    on each rank of a dp = world mesh.  Every call uploads each rank's
+    block of batch * audio_seconds * sample_rate wire bytes; repeats keep
+    the best wall.  `mega` is True: K2, the megakernel's port, serves
+    every geometry here."""
+    import torch.distributed as dist
+
+    from .models.modem import FskModem
+    from .parallel.service import ShardedReceiver
+    from .parallel.sharding import make_mesh
+
+    m = FskModem(mode, sample_rate=sample_rate, precision=precision,
+                 device=device)
+    base = _bench_payload(m.cfg, audio_seconds)
+    payloads = [bytes((b + 5 * i) % 94 + 33 for b in base)
+                for i in range(batch)]
+    waves = [m.modulate(p) for p in payloads]
+    if encoding is not None:
+        waves = [_encode_wire(w, encoding) for w in waves]
+    L = max(len(w) for w in waves)
+    x = np.zeros((batch, L), np.uint8 if encoding else np.float32)
+    for i, w in enumerate(waves):
+        x[i, :len(w)] = w
+    totals = [len(w) for w in waves]
+    audio_sec = sum(totals) / sample_rate
+
+    mesh = make_mesh(sp=1, device=device)
+    svc = ShardedReceiver(m.cfg, mesh, precision, device=device)
+    events, _ = svc.run_events_batch(x, totals, 1.5, 2.3,
+                                     in_encoding=encoding)
+    ok = _render_ok(m.cfg, "ascii8", payloads, events)
+
+    dt = float("inf")
+    for _ in range(max(1, int(repeats))):
+        t0 = time.perf_counter()
+        svc.run_events_batch(x, totals, 1.5, 2.3, in_encoding=encoding)
+        dt = min(dt, time.perf_counter() - t0)
+    return {
+        "mode": mode,
+        "encoding": encoding or "float32",
+        "batch": batch,
+        "devices": dist.get_world_size(),
+        "mega": True,
         "audio_seconds": audio_sec,
         "wall_seconds": dt,
         "real_time_factor": audio_sec / dt,

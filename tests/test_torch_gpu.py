@@ -865,3 +865,111 @@ def test_loopback_128_short_streams(cuda):
     for got in (res[0], res[1][::-1], res[2], chained[:128][::-1],
                 chained[128:]):
         _events_close(got, sync)
+
+
+@pytest.fixture(scope="module")
+def world1():
+    """A world of one rank on the card (NCCL, a localhost store) and its
+    (1, 1) mesh, torn down after the module's fleet tests."""
+    import torch.distributed as dist
+
+    from minimodem_tpu_torch.parallel.sharding import make_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    made = not dist.is_initialized()
+    mesh = make_mesh(device="cuda")
+    yield mesh
+    if made:
+        dist.destroy_process_group()
+
+
+def _counts():
+    from minimodem_tpu_torch.ops.correlate import Correlator, correlate_plain
+    from minimodem_tpu_torch.ops.fused_score import (FusedScorer,
+                                                     score_planes_plain)
+    from minimodem_tpu_torch.ops.mega_rx import MegaRx, mega_rx_plain
+
+    return {"k1": FusedScorer.launches, "k2": MegaRx.launches,
+            "k3": Correlator.launches + Correlator.batch_launches,
+            "plain": score_planes_plain.calls + mega_rx_plain.calls
+            + correlate_plain.calls}
+
+
+@pytest.mark.parametrize("enc", [None, "ulaw"])
+def test_fleet_receiver_world1_equals_device_receiver(world1, enc):
+    """ShardedReceiver at world size 1 on the card: K1 and K2 launched,
+    no plain version, and every part of every stream equal to the
+    single-card DeviceReceiver's."""
+    from minimodem_tpu_torch.bench import _encode_wire
+    from minimodem_tpu_torch.ops.device_rx import DeviceReceiver
+    from minimodem_tpu_torch.parallel.service import ShardedReceiver
+
+    cfg = _modem("1200").cfg
+    texts = _payloads(3, 120)
+    waves = [_modem("1200").modulate(t) for t in texts]
+    if enc:
+        waves = [_encode_wire(w, enc) for w in waves]
+    x = np.zeros((3, max(map(len, waves))), waves[0].dtype)
+    for i, w in enumerate(waves):
+        x[i, :len(w)] = w
+    totals = [len(w) for w in waves]
+    before = _counts()
+    got, stats = ShardedReceiver(cfg, world1).run_events_batch(
+        x, totals, THR, LIM, in_encoding=enc)
+    after = _counts()
+    assert after["k1"] > before["k1"] and after["k2"] > before["k2"]
+    assert after["plain"] == before["plain"]
+    ref, _ = DeviceReceiver(cfg, device="cuda").run_events_batch(
+        x, totals, THR, LIM, in_encoding=enc)
+    for g, r, t in zip(got, ref, texts):
+        for a, b in zip(g, r):
+            np.testing.assert_array_equal(a, b)
+        assert g[2].tobytes() == t
+    assert stats["devices"] == 1
+    assert stats["frames_total"] == sum(len(t) for t in texts)
+
+
+def test_fleet_loopback_world1_equals_device_loopback(world1):
+    from minimodem_tpu_torch.codecs import Ascii8Codec
+    from minimodem_tpu_torch.ops.device_rx import DeviceLoopback
+    from minimodem_tpu_torch.ops.tx_device import tx_bit_schedule
+    from minimodem_tpu_torch.parallel.service import ShardedLoopback
+
+    cfg = _modem("1200").cfg
+    texts = _payloads(5, 150)
+    scheds = [tx_bit_schedule(t, cfg, Ascii8Codec()) for t in texts]
+    before = _counts()
+    got = ShardedLoopback(cfg, world1).run_events_batch(scheds)
+    after = _counts()
+    assert after["k1"] > before["k1"] and after["k2"] > before["k2"]
+    assert after["plain"] == before["plain"]
+    ref = DeviceLoopback(cfg, device="cuda").run_events_batch(scheds)
+    for g, r in zip(got, ref):
+        for a, b in zip(g, r):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_sharded_step_world1_equals_score_fn(world1, batch):
+    """sharded_decode_step at world size 1: K3 launched (the one-row form
+    at batch 1), the channels bit for bit those of _build_score_fn."""
+    from minimodem_tpu_torch.ops.demod import (CHANNELS, _build_score_fn,
+                                               geometry_from_config)
+    from minimodem_tpu_torch.parallel.sharding import sharded_decode_step
+
+    cfg, wav = _noisy("1200", 9, n_bytes=200)
+    t_len = 1 << 15
+    x = np.resize(wav, (batch, t_len)).astype(np.float32)
+    before = _counts()
+    out = sharded_decode_step(cfg, world1, x, t_len)
+    after = _counts()
+    assert after["k3"] > before["k3"] and after["plain"] == before["plain"]
+    geo = geometry_from_config(cfg)
+    xs = np.zeros((batch, t_len + geo.halo), np.float32)
+    xs[:, :t_len] = x
+    ref = _build_score_fn(geo, t_len, "cuda:0")(
+        torch.from_numpy(xs).cuda()).cpu().numpy()
+    for i, k in enumerate(CHANNELS):
+        np.testing.assert_array_equal(out[k].view(np.int32), ref[:, i],
+                                      err_msg=k)

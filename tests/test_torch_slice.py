@@ -165,8 +165,8 @@ def test_modem_api_matches_jax(tmp_path):
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports neither jax nor minimodem_tpu: with jax blocked in
-    sys.modules it still decodes a WAV and runs the on-device loopback on
-    the CPU."""
+    sys.modules it still decodes a WAV, runs the on-device loopback and
+    the fleet service (a world of one) on the CPU."""
     path = str(tmp_path / "blocked.wav")
     text = b"no jax here\n"
     _write_wav(path, FskModem("1200").modulate(text), "pcm16")
@@ -182,6 +182,11 @@ def test_port_runs_with_jax_blocked(tmp_path):
         "s = tx_bit_schedule(b'loopback', cfg, Ascii8Codec())\n"
         "ev = DeviceLoopback(cfg, device='cpu').run_events_batch([s, s])\n"
         "assert [e[2].tobytes() for e in ev] == [b'loopback'] * 2, ev\n"
+        "import minimodem_tpu_torch.parallel.dryrun\n"
+        "from minimodem_tpu_torch.parallel.service import ShardedReceiver\n"
+        "w = FskModem('1200', device='cpu').modulate(b'fleet')\n"
+        "outs, st = ShardedReceiver(cfg, device='cpu').decode_batch([w])\n"
+        "assert outs == [b'fleet'] and st['devices'] == 1, (outs, st)\n"
         "rc = c.main(['--rx', '--file', sys.argv[1], '1200', "
         "'--device', 'cpu'])\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
@@ -246,6 +251,16 @@ def _first_use(entry):
         lb = DeviceLoopback(m.cfg)
         sched = tx_bit_schedule(b"x", m.cfg, get_codec("ascii8"))
         return lb, lambda: lb.run_events_batch([sched])
+    if entry in ("ShardedReceiver", "ShardedLoopback"):
+        from minimodem_tpu_torch.ops.tx_device import tx_bit_schedule
+        from minimodem_tpu_torch.parallel import service
+
+        if entry == "ShardedReceiver":
+            svc = service.ShardedReceiver(m.cfg)
+            return svc, lambda: svc.decode_batch([wav])
+        flb = service.ShardedLoopback(m.cfg)
+        sched = tx_bit_schedule(b"x", m.cfg, get_codec("ascii8"))
+        return flb, lambda: flb.run_events_batch([sched])
     if entry == "Transmitter":
         from minimodem_tpu_torch.config import TxOptions
         from minimodem_tpu_torch.ops.tx import Transmitter
@@ -262,7 +277,7 @@ def _first_use(entry):
 @pytest.mark.parametrize("entry", [
     "FskModem", "Receiver", "ScoreProvider", "DemodScorer", "DeviceReceiver",
     "PipelinedReceiver", "DeviceStreamReceiver", "MegaReceiver",
-    "DeviceLoopback", "Transmitter"])
+    "DeviceLoopback", "Transmitter", "ShardedReceiver", "ShardedLoopback"])
 def test_entry_points_default_to_the_card(entry):
     """Every public entry point defaults to device="cuda", as the JAX
     package runs on its default accelerator; without a card the first use
@@ -275,6 +290,22 @@ def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(type(obj)).parameters["device"].default == "cuda"
     with pytest.raises(RuntimeError, match='device="cpu"'):
         use()
+
+
+def test_dryrun_defaults_to_the_card():
+    """The dry run's entry point defaults to device="cuda" too: without
+    a card it raises naming device="cpu" before it starts a world, and
+    never takes gloo ranks on the CPU unasked."""
+    import inspect
+
+    from minimodem_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    assert inspect.signature(dryrun_multichip).parameters[
+        "device"].default == "cuda"
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        dryrun_multichip(2)
 
 
 def test_unported_features_name_their_roadmap_item(monkeypatch):
