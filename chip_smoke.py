@@ -115,7 +115,22 @@ one line each; any failure exits non-zero:
  20. on a machine with N > 1 cards (only there), the fleet across them,
      one NCCL rank a card: the dry run on N ranks, then the two fleet
      rows at N times the one-card batch, and ShardedLoopback at dp = N /
-     ShardedReceiver at (N / 2, 2), their events held against one card's.
+     ShardedReceiver at (N / 2, 2), their events held against one card's;
+ 21. the delta-bitpack wire (ops/wirepack.py): the phase-4 file's int16
+     samples packed on the host at k 0..5 and w 8 and 12 (and an escape
+     pattern and silence), unpacked on the card, every float32 word equal
+     to the CPU's unpack and to the raw int16 wire's normalization; then
+     wire_pack=True against wire_pack=False on the card: the phase-4 file
+     through Receiver.run (with the counts set to 0 just before: K1 and
+     K2 once a segment, plain calls 0), one segment at a bucket-aligned
+     and a mid-bucket length, a noise burst whose segment takes the raw
+     int16 wire (the count printed), uic-train (make_score_packer and K3
+     after the unpack) and "auto" with MINIMODEM_TPU_WIREPACK=1; the
+     kernels' last launches held against their plain versions; then the
+     split: the host pack of a 2^21-sample segment (MB/s), pinned uploads
+     of the raw and the packed row, the device unpack (time and kernels),
+     the warm decode walls raw and packed in turns (the phase-4 file and
+     a 120 s stream) and the link rate below which the packed wire pays.
 
 The kernels' JSON summary (each entry with its launches on the device
 engine's file decode, as loopback_launches on the loopback, and for K1
@@ -125,7 +140,10 @@ script's wall and the nvidia-smi line come before the last line, which
 is {"ok": true, "device": {...}}.  Each entry also has fleet_launches,
 its launches on phase 18's fleet, and K1's and K2's have
 decomposition_launches, per rank and case of phase 19, and
-cards_launches, per rank of phase 20 (empty on one card).
+cards_launches, per rank of phase 20 (empty on one card); K1's and K2's
+have wirepack_launches, their launches on phase 21's packed decode of
+the phase-4 file, and K2's and K3's wirepack_uic_launches on its packed
+uic-train decode.
 """
 
 from __future__ import annotations
@@ -247,9 +265,9 @@ def kernel_device_ms(fn, reps: int, kernel: str):
 
 
 def device_ms_per_call(fn, reps: int):
-    """Mean device time per call of fn() over reps calls, every kernel
-    and copy it launches summed (torch.profiler); None when the profiler
-    saw no device time."""
+    """(mean device time, device kernels and copies launched) per call of
+    fn() over reps calls, every kernel and copy summed (torch.profiler);
+    (None, None) when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -260,11 +278,14 @@ def device_ms_per_call(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0)
-             for e in prof.key_averages()
-             if getattr(e, "device_type", None)
-             == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3 if us > 0 else None
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA
+            and getattr(e, "self_device_time_total", 0) > 0]
+    if not rows:
+        return None, None
+    us = sum(e.self_device_time_total for e in rows)
+    return us / reps / 1e3, sum(e.count for e in rows) / reps
 
 
 def run_cli_inprocess(argv):
@@ -428,7 +449,7 @@ def k3_check(audio, dev):
                                           "correlate_kernel"),
             "plain_ms": cuda_ms(lambda: correlate_plain(x, basis, s_len), 3),
             "library_ms": cuda_ms(lib, 20),
-            "library_device_ms": device_ms_per_call(lib, 20),
+            "library_device_ms": device_ms_per_call(lib, 20)[0],
             # each input sample read once (the overlapping rows share
             # theirs), each output written once; 4 * nb FMAs (2 FLOP
             # each) per output offset and stream
@@ -2303,6 +2324,280 @@ def cards_phase(n: int, card: str, dev) -> dict:
     return {"launches": [res["launches"] for res in ranks]}
 
 
+def read_s16(wav: str):
+    """A PCM16 WAV's samples as int16, as the CLI reads them for the
+    device engine (int16 ships raw)."""
+    import numpy as np
+    from minimodem_tpu_torch.sigio import Direction, SampleFormat, open_stream
+
+    stream = open_stream("file", None, Direction.RECORD, SampleFormat.FLOAT,
+                         48000, 1, "chip_smoke", wav)
+    stream.format = SampleFormat.S16
+    chunks = []
+    while (c := stream.read(1 << 20)).size:
+        chunks.append(c)
+    stream.close()
+    return np.concatenate(chunks).astype(np.int16)
+
+
+def wirepack_phase(s16, text: bytes, card: str, dev) -> dict:
+    """Phase 21: the delta-bitpack wire (ops/wirepack.py) on the card.
+
+    The round trip: the phase-4 file's int16 samples (and a full-scale
+    escape pattern and silence) packed on the host for k 0..5 and w 8 and
+    12, unpacked on the card: every float32 word equal to unpack_expand on
+    a CPU copy and to normalize_input(raw, "int16") on the card.  Then
+    decodes with wire_pack=True against wire_pack=False on the card: the
+    phase-4 file through Receiver.run (the slice's main path: the counts
+    set to 0 just before it and read just after; K1 and K2 once a
+    segment, plain calls 0), one segment through FskModem.demodulate at a
+    bucket-aligned and a mid-bucket length, a stream with a noise burst
+    whose segment takes the raw int16 wire, uic-train at ~60 s (K3 and
+    make_score_packer) and "auto" with MINIMODEM_TPU_WIREPACK=1; K1, K2
+    and K3 held against their plain versions on their last launches
+    (hold_last).  Then the split: the host pack of a 2^21-sample segment,
+    pinned uploads raw and packed, the device unpack, the decode walls
+    raw and packed in turns, and the link rate below which the packed
+    wire pays.  -> the numbers."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch.codecs import get_codec
+    from minimodem_tpu_torch.config import RxOptions
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.ops import wirepack as wp
+    from minimodem_tpu_torch.ops.device_rx import (
+        PipelinedReceiver, _round_up_pow2, normalize_input)
+    from minimodem_tpu_torch.rx.engine import Receiver
+
+    modem = FskModem("1200", device=dev)
+    cfg = modem.cfg
+    n = len(s16)
+    pr = PipelinedReceiver(cfg, device=dev)
+    n_seg = -(-max(n - pr.segment_len, 0) // pr.step) + 1
+
+    def words(a):
+        return a.view(np.uint32)
+
+    # ---- the round trip, bit for bit ----
+    esc = np.resize(np.array([0, 0, 0, 0, 32767, -32768, 32767, -32768],
+                             np.int16), 1 << 16)
+    cases = [("phase-4 audio", s16, k, w) for k in range(wp.MAX_ORDER + 1)
+             for w in (8, 12)]
+    cases += [("escape", esc, 3, 8), ("silence", np.zeros(1 << 16, np.int16),
+                                      2, 12)]
+    bad = []
+    for name, x, k, w in cases:
+        e_cap = wp.exc_capacity(wp.count_exceptions(x, k, w))
+        n_target = len(x) + 777
+        wire = torch.from_numpy(
+            wp.pack(x, len(x), k, w, e_cap).view(np.int16)[None])
+        tot = torch.tensor([len(x) - 99], dtype=torch.int32)
+        got = wp.unpack_expand(wire.to(dev), tot.to(dev), k, w, len(x),
+                               e_cap, n_target).cpu().numpy()
+        ref = wp.unpack_expand(wire, tot, k, w, len(x), e_cap,
+                               n_target).numpy()
+        raw = np.zeros((1, n_target), np.int16)
+        raw[0, :len(x) - 99] = x[:len(x) - 99]
+        norm = normalize_input(torch.from_numpy(raw).to(dev),
+                               "int16").cpu().numpy()
+        if not (np.array_equal(words(got), words(ref))
+                and np.array_equal(words(got), words(norm))):
+            bad.append((name, k, w))
+    phase(f"wirepack round trip on the card: {len(cases)} cases (the phase-4 "
+          f"audio, {n} samples, at k 0..5 x w 8, 12; a full-scale escape "
+          f"pattern; silence), each row of float32 words == unpack_expand on "
+          f"the CPU and == normalize_input(raw, int16) on the card, the "
+          f"masked tail included: {'all' if not bad else bad}")
+    if bad:
+        fail(f"wirepack round trip differs: {bad}")
+
+    def receive(samples, wire_pack, mode=None):
+        """Receiver.run on the card -> (stdout, stderr)."""
+        m = modem if mode is None else FskModem(mode, device=dev)
+        out, err = io.BytesIO(), io.StringIO()
+        Receiver(m.cfg, RxOptions(), get_codec(m.preset.decoder), out.write,
+                 err.write, device=dev).run(samples, wire_pack=wire_pack)
+        torch.cuda.synchronize()
+        return out.getvalue(), err.getvalue()
+
+    res = {}
+    with last_inputs() as seen:
+        # ---- the slice's main path: the phase-4 file on the packed wire
+        raw = receive(s16, False)
+        receive(s16, True)                             # warm-up
+        counts = reset_counts()
+        packed = receive(s16, True)
+        res["launches"] = lc = read_counts(counts)
+        ok = (packed == raw and packed[0] == text
+              and lc["fused_score"] == lc["mega_rx"] == n_seg
+              and lc["plain"] == 0)
+        phase(f"wirepack decode of the phase-4 file (Receiver.run, "
+              f"wire_pack=True, {n_seg} segments with a carried state): "
+              f"stdout and stderr == wire_pack=False {packed == raw}, stdout "
+              f"exact {packed[0] == text}; launches with the counts set to 0 "
+              f"just before {lc}")
+        if not ok:
+            fail(f"wirepack main path: {lc}\n{packed[1]}\n{raw[1]}")
+
+        # ---- one segment at a bucket-aligned and a mid-bucket length
+        one = []
+        for cut in ((1 << 20) - cfg.nsamples_overscan - 1, 1_500_000):
+            x = s16[:cut]
+            a = modem.demodulate(x, return_events=True, wire_pack=False)
+            b = modem.demodulate(x, return_events=True, wire_pack=True)
+            one.append((cut, _round_up_pow2(cut + cfg.nsamples_overscan + 1),
+                        a == b))
+        phase("wirepack one segment (FskModem.demodulate): " + "; ".join(
+            f"{c} samples (packed at the {b}-sample bucket) == raw {ok1}"
+            for c, b, ok1 in one))
+        if not all(r[2] for r in one):
+            fail(f"wirepack one-segment decodes differ: {one}")
+
+        # ---- a noise burst whose segment overflows segment 0's capacity
+        rng = np.random.default_rng(SEED + 21)
+        gap = np.zeros(1 << 20, np.int16)
+        burst = np.concatenate([
+            s16, gap, rng.integers(-32768, 32768, 140_000).astype(np.int16),
+            gap, s16])
+        per, n_raw = {}, {}
+        for wpk in (False, True):
+            pr = PipelinedReceiver(cfg, device=dev)
+            per[wpk] = [tuple(np.asarray(a).tobytes() for a in o)
+                        for o in pr.run(burst, 1.5, 2.3, wire_pack=wpk)]
+            n_raw[wpk] = pr.raw_segments
+        res["burst_raw_segments"] = n_raw[True]
+        phase(f"wirepack noise burst ({len(burst)} samples, 140000 of "
+              f"full-scale noise between 2^20-sample silences): "
+              f"{len(per[True])} segments, {n_raw[True]} of them on the raw "
+              f"int16 wire (exception overflow); per-segment events == "
+              f"wire_pack=False {per[True] == per[False]}")
+        if per[True] != per[False] or n_raw[True] < 1 or n_raw[False]:
+            fail(f"wirepack noise burst: raw segments {n_raw}")
+
+        # ---- uic-train: make_score_packer and K3 after the unpack
+        gcfg, _, wav_u, text_u, _ = geometry_signal(
+            "uic-train", np.random.default_rng(SEED + 17))
+        u16 = np.clip(np.rint(np.asarray(wav_u, np.float64) * 32767.0),
+                      -32768, 32767).astype(np.int16)
+        ru = receive(u16, False, "uic-train")
+        counts = reset_counts()
+        pu = receive(u16, True, "uic-train")
+        res["uic_launches"] = lu = read_counts(counts)
+        k3 = lu["correlate"] + lu["correlate_batch"]
+        phase(f"wirepack uic-train ({len(u16) / gcfg.sample_rate:.1f} s, "
+              f"packed {wp.choose_params(u16)}): stdout and stderr == "
+              f"wire_pack=False {pu == ru}, stdout exact {pu[0] == text_u}; "
+              f"launches {lu}")
+        if pu != ru or pu[0] != text_u or k3 < 1 or lu["mega_rx"] < 1 \
+                or lu["plain"]:
+            fail(f"wirepack uic-train: {lu}")
+
+        # ---- "auto" with MINIMODEM_TPU_WIREPACK=1
+        calls, real_pack = [], wp.pack
+
+        def counted_pack(*a, **k):
+            calls.append(len(a[0]))
+            return real_pack(*a, **k)
+
+        wp.pack = counted_pack
+        os.environ["MINIMODEM_TPU_WIREPACK"] = "1"
+        try:
+            auto = receive(s16, "auto")
+        finally:
+            wp.pack = real_pack
+            del os.environ["MINIMODEM_TPU_WIREPACK"]
+        phase(f"wirepack \"auto\" with MINIMODEM_TPU_WIREPACK=1: "
+              f"{len(calls)} segments packed, stdout and stderr == raw "
+              f"{auto == raw}")
+        if auto != raw or len(calls) != n_seg:
+            fail(f"wirepack auto: {len(calls)} packs")
+    res["held"] = held = hold_last(seen)
+    phase(f"wirepack kernels on their last launches against their plain "
+          f"versions on the same inputs: {held_line(held)}")
+    if not all(r["ok"] for r in held.values()) or not {
+            "fused_score", "mega_rx"} <= set(held):
+        fail("a kernel of the wirepack phase disagrees with its plain version")
+
+    # ---- the split of one 2^21-sample Bell-202 segment ----
+    seg = s16[:pr.segment_len]
+    seg_b = 2 * len(seg)
+
+    def best_s(fn, reps=5):
+        return min(best_walls([fn], reps))
+
+    choose_s = best_s(lambda: wp.choose_params(seg))
+    k, w = wp.choose_params(seg)
+    count_s = best_s(lambda: wp.count_exceptions(seg, k, w))
+    e_cap = wp.exc_capacity(wp.count_exceptions(seg, k, w))
+    row_b = wp.row_bytes(len(seg), k, w, e_cap)
+    host = torch.empty(row_b // 2, dtype=torch.int16, pin_memory=True)
+    pack_s = best_s(lambda: wp.pack(seg, len(seg), k, w, e_cap,
+                                    out=host.numpy().view(np.uint8)))
+    total_nf = pr.segment_len - pr._lookahead + cfg.expect_nsamples
+    t_total = _round_up_pow2(total_nf + cfg.nsamples_overscan + 1)
+    n_x = t_total + pr.geo.halo
+    # the raw wire's row is the segment zero-filled to the scored length
+    raw_h = torch.zeros(n_x, dtype=torch.int16, pin_memory=True)
+    raw_h[:len(seg)] = torch.from_numpy(seg)
+    raw_d = torch.empty_like(raw_h, device=dev)
+    pk_d = torch.empty_like(host, device=dev)
+    h2d_raw = cuda_ms(lambda: raw_d.copy_(raw_h, non_blocking=True), 20)
+    h2d_pk = cuda_ms(lambda: pk_d.copy_(host, non_blocking=True), 20)
+    tot = torch.tensor([total_nf], dtype=torch.int32, device=dev)
+    wire_d = pk_d[None]
+
+    def unpack():
+        return wp.unpack_expand(wire_d, tot, k, w, len(seg), e_cap, n_x,
+                                len(seg) - total_nf)
+
+    unpack_ms = cuda_ms(unpack, 20)
+    unpack_dev_ms, unpack_kernels = device_ms_per_call(unpack, 5)
+    # the packed wire pays on a link that moves the bytes it saves slower
+    # than the host packs and the card unpacks a segment
+    saved_b = 2 * n_x - row_b
+    even_mbps = saved_b / (pack_s + unpack_ms * 1e-3) / 1e6
+    res.update(k=k, w=w, e_cap=e_cap, ratio=row_b / (2 * n_x),
+               choose_ms=choose_s * 1e3, count_ms=count_s * 1e3,
+               pack_ms=pack_s * 1e3, pack_mbps=seg_b / pack_s / 1e6,
+               h2d_raw_ms=h2d_raw, h2d_packed_ms=h2d_pk, unpack_ms=unpack_ms,
+               unpack_device_ms=unpack_dev_ms, unpack_kernels=unpack_kernels,
+               break_even_mbps=even_mbps)
+    phase(f"wirepack split of one 2^21-sample Bell-202 segment ({seg_b} B "
+          f"of samples, a {2 * n_x} B raw row, {row_b} B packed at k {k}, w {w}, e_cap {e_cap}: "
+          f"{row_b / (2 * n_x):.4f}x the row): host choose_params {choose_s * 1e3:.3f} "
+          f"ms, count_exceptions {count_s * 1e3:.3f} ms, pack "
+          f"{pack_s * 1e3:.3f} ms = {seg_b / pack_s / 1e6:.1f} MB/s of "
+          f"samples (one thread, best of 5); pinned H2D raw row "
+          f"{h2d_raw:.4f} ms ({2 * n_x / h2d_raw / 1e3:.0f} MB/s), packed "
+          f"{h2d_pk:.4f} ms; "
+          f"device unpack_expand to [1, {n_x}] {unpack_ms:.4f} ms per call "
+          f"(CUDA events), {fmt_ms(unpack_dev_ms)} device time in "
+          f"{'not measured' if unpack_kernels is None else f'{unpack_kernels:.0f}'}"
+          f" kernels (torch.profiler); the packed wire pays "
+          f"below a link of {even_mbps:.1f} MB/s ({card})")
+
+    # ---- decode walls, raw against packed, in turns ----
+    long16 = np.resize(s16, 120 * cfg.sample_rate)
+    walls = {}
+    for name, x in (("phase-4 file", s16), ("120 s stream", long16)):
+        same = receive(x, True) == receive(x, False)
+        best = best_walls([lambda x=x: receive(x, False),
+                           lambda x=x: receive(x, True)], 3)
+        audio_s = len(x) / cfg.sample_rate
+        walls[name] = {"audio_s": audio_s, "raw_s": best[0],
+                       "packed_s": best[1], "same": same}
+        phase(f"wirepack time {name} ({audio_s:.1f} s audio), warm, best of "
+              f"3 in turns: raw wire {best[0] * 1e3:.2f} ms = "
+              f"{audio_s / best[0]:.0f}x real time, packed "
+              f"{best[1] * 1e3:.2f} ms = {audio_s / best[1]:.0f}x "
+              f"({100 * (best[1] / best[0] - 1):+.1f}%); packed == raw "
+              f"{same} ({card})")
+        if not same:
+            fail(f"wirepack {name}: packed decode differs from raw")
+    res["walls"] = walls
+    return res
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2475,6 +2770,7 @@ def main() -> int:
               f"{plain_calls}; stderr: {err_c.strip()!r}")
         if not ok_e2e:
             fail(f"end-to-end mismatch: rc {rc_c}/{rc_p}\n{err_c}\n{err_p}")
+        s16_file = read_s16(wav)
 
         # ---- 6-9. K3 and the host engines ----
         k3, k3_more = k3_check(audio, dev)
@@ -2745,6 +3041,9 @@ def main() -> int:
     cards = (cards_phase(n_cards, card, dev) if n_cards > 1
              else {"launches": []})
 
+    # ---- 21. the delta-bitpack wire ----
+    wpk = wirepack_phase(s16_file, text, card, dev)
+
     # K1: the audio row read and the planes written once; 4 * nb FMAs per
     # scored offset (stage 2's comb sums are a few percent more)
     geo1 = scorer.geo
@@ -2777,6 +3076,7 @@ def main() -> int:
          "decomposition_launches": [
              r["launches"]["fused_score"] for r in dec["rows"]],
          "cards_launches": [r["fused_score"] for r in cards["launches"]],
+         "wirepack_launches": wpk["launches"]["fused_score"],
          "loopback_ms": lk["k1_ms"], "loopback_kernel_ms": lk["k1_kernel_ms"],
          "loopback_plain_ms": lk["k1_plain_ms"],
          "loopback_bound_ms": lk["k1_bound"][0],
@@ -2794,6 +3094,8 @@ def main() -> int:
          "decomposition_launches": [
              r["launches"]["mega_rx"] for r in dec["rows"]],
          "cards_launches": [r["mega_rx"] for r in cards["launches"]],
+         "wirepack_launches": wpk["launches"]["mega_rx"],
+         "wirepack_uic_launches": wpk["uic_launches"]["mega_rx"],
          "geometry_launches": {r["name"]: r["launches"]["mega_rx"]
                                for r in geo_rows},
          "geometry_batch_launches": {r["name"]: r["batch_launches"]["mega_rx"]
@@ -2814,6 +3116,7 @@ def main() -> int:
          "library_ms": k3a["library_ms"],
          "library_device_ms": k3a["library_device_ms"],
          "loopback_launches": 0, "fleet_launches": fl["correlate"],
+         "wirepack_uic_launches": wpk["uic_launches"]["correlate"],
          "geometry_launches": {r["name"]: r["launches"]["correlate"]
                                for r in geo_rows if r["route"] == "K3"}},
         {"name": "correlate_batch", "route": "cuda",
@@ -2827,6 +3130,7 @@ def main() -> int:
          "library_device_ms": k3b["library_device_ms"],
          "loopback_launches": 0,
          "fleet_launches": fl["correlate_batch"],
+         "wirepack_uic_launches": wpk["uic_launches"]["correlate_batch"],
          "geometry_batch_launches": {
              r["name"]: r["batch_launches"]["correlate_batch"]
              for r in geo_rows if r["route"] == "K3"}},

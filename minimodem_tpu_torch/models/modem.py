@@ -60,12 +60,15 @@ class FskModem:
 
     # ------------------------------------------------------------------
     def demodulate(self, samples: np.ndarray, return_events: bool = False,
-                   in_encoding: str = None):
+                   in_encoding: str = None, wire_pack="auto"):
         """Decode FSK audio samples to bytes on self.device.
 
         in_encoding: raw-u8 wire encoding ("ulaw"/"alaw"/"pcm8") when
         `samples` holds unexpanded bytes — the device expands them
-        (1 byte/sample over the host link, bit-identical values)."""
+        (1 byte/sample over the host link, bit-identical values).
+
+        wire_pack: "auto"/True/False — the delta-bitpack wire for int16
+        samples (Receiver.run)."""
         from ..rx.engine import Receiver
 
         # int16 passes through raw: the device normalizes it
@@ -78,7 +81,7 @@ class FskModem:
         events: list[str] = []
         rxer = Receiver(self.cfg, self.rx_options, codec,
                         sink.write, events.append, device=self.device)
-        rxer.run(samples, in_encoding=in_encoding)
+        rxer.run(samples, in_encoding=in_encoding, wire_pack=wire_pack)
         if return_events:
             return sink.getvalue(), events
         return sink.getvalue()

@@ -4,7 +4,9 @@ Counterpart of minimodem_tpu/ops/device_rx.py.  One call runs the whole
 receive pipeline on the device:
 
   wire   : the host uploads int16 / float32 / raw u8 (G.711, PCM8) samples
-           and the device normalizes them (normalize_input, expand_wire)
+           or a delta-bitpacked int16 row (ops/wirepack.py), and the
+           device normalizes them (normalize_input, expand_wire,
+           wirepack.unpack_expand)
   score  : per-offset score planes, by geometry alone: K1, the fused
            scorer (ops/fused_score.py), where it serves the geometry, else
            make_score_packer (stage 1 through K3, the FFT or the float64
@@ -31,12 +33,15 @@ crosses the host link.
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
 from ..config import ModemConfig
 from ..utils import device as _device
 from .demod import DemodGeometry, geometry_from_config
+from .wirepack import parse_spec
 
 FSK_ANALYZE_NSTEPS = 3          # reference: src/minimodem.c:1248
 FSK_ANALYZE_NSTEPS_FINE = 8     # reference: src/minimodem.c:1365
@@ -198,20 +203,22 @@ def expand_wire(x: torch.Tensor, total: torch.Tensor, input_dtype: str,
 
 def alloc_wire(shape, samples_dtype, in_encoding: str = None):
     """Zero-signal-filled host buffer for a wire upload: np.zeros for
-    int16/float32, the encoding's silence codeword for raw u8."""
-    if in_encoding:
+    int16/float32, the encoding's silence codeword for raw u8, zeros for
+    dpack (zero header seeds and zero deltas reconstruct exact silence)."""
+    if in_encoding and not parse_spec(in_encoding):
         return np.full(shape, PAD_BYTE[in_encoding], np.uint8)
     return np.zeros(shape, samples_dtype)
 
 
 def wire_dtype(samples: np.ndarray, in_encoding: str = None) -> str:
-    """Wire encoding of a host sample array: an explicit u8 encoding
-    (U8_ENCODINGS) wins; else int16/float32 by dtype."""
+    """Wire encoding of a host sample array: a dpack spec
+    (ops/wirepack.py) or an explicit u8 encoding (U8_ENCODINGS) wins;
+    else int16/float32 by dtype."""
+    if in_encoding and parse_spec(in_encoding):
+        return in_encoding
     if in_encoding:
         if in_encoding not in U8_ENCODINGS:
-            raise NotImplementedError(
-                f"wire encoding {in_encoding!r} is not ported (delta-bitpack "
-                "wires are ROADMAP queue 1 item 12)")
+            raise ValueError(f"unknown wire encoding {in_encoding!r}")
         if samples.dtype != np.uint8:
             raise ValueError(f"{in_encoding} wire needs uint8 samples, got "
                              f"{samples.dtype}")
@@ -453,32 +460,72 @@ class PipelinedReceiver:
         self.segment_len = max(segment_len,
                                4 * (self.overlap + cfg.expect_nsamples))
         self.step = self.segment_len - self.overlap
+        # segments of the last run() that a dpack stream sent on the raw
+        # int16 wire (exception overflow, or a clipped segment)
+        self.raw_segments = 0
 
     def run(self, samples: np.ndarray, conf_threshold: float,
-            conf_search_limit: float, in_encoding: str = None):
+            conf_search_limit: float, in_encoding: str = None,
+            wire_pack="auto"):
         """Yield per-segment event tuples: (ev_type, ev_pay, byte_stream),
-        or (ev_type, ev_pay) for more than 8 data bits."""
+        or (ev_type, ev_pay) for more than 8 data bits.
+
+        wire_pack: the lossless delta-bitpack wire (ops/wirepack.py) for
+        int16 samples without in_encoding, bit-identical decode on fewer
+        wire bytes.  "auto" engages it only on streams longer than one
+        segment and only with MINIMODEM_TPU_WIREPACK=1
+        (wirepack.default_on); True packs whenever choose_params finds
+        the wire pays; False keeps the raw int16 wire."""
+        from . import wirepack
         from .mega_rx import MegaReceiver, mega_runner
 
         _device.require(self.device)
+        cfg = self.cfg
         n = len(samples)
+        self.raw_segments = 0
+        dp = None
+        if (wire_pack and in_encoding is None and samples.dtype == np.int16
+                and (wire_pack is True
+                     or (n > self.segment_len and wirepack.default_on()))):
+            dp = wirepack.choose_params(samples)
         if n <= self.segment_len:
+            wire = samples[None, :]
+            if dp is not None:
+                k, w = dp
+                e_cap = wirepack.exc_capacity(
+                    wirepack.count_exceptions(samples, k, w))
+                # pack at the receiver's power-of-two bucket of t_total,
+                # so nearby lengths share one runner (the shortfall
+                # decodes as held deltas, masked past totals)
+                n_packed = _round_up_pow2(n + cfg.nsamples_overscan + 1)
+                wire = wirepack.pack(samples, n_packed, k, w,
+                                     e_cap).view(np.int16)[None, :]
+                in_encoding = wirepack.spec_str(k, w, n_packed, e_cap)
             events, _ = DeviceReceiver(
-                self.cfg, self.precision, self.rx_one, self.compact,
+                cfg, self.precision, self.rx_one, self.compact,
                 device=self.device
-            ).run_events_batch(samples[None, :], [n], conf_threshold,
+            ).run_events_batch(wire, [n], conf_threshold,
                                conf_search_limit, in_encoding=in_encoding)
             yield events[0]
             return
 
-        cfg = self.cfg
-        in_dtype = wire_dtype(samples, in_encoding)
+        if dp is not None:
+            # every segment, the tail included, packs at n_packed =
+            # segment_len, so one layout serves both runners; the
+            # exception capacity comes from segment 0 plus headroom
+            k, w = dp
+            e_cap = wirepack.exc_capacity(wirepack.count_exceptions(
+                samples[:self.segment_len], k, w))
+            dp = (k, w, self.segment_len, e_cap)
+            in_dtype = wirepack.spec_str(*dp)
+        else:
+            in_dtype = wire_dtype(samples, in_encoding)
         total_nf = self.segment_len - self._lookahead + cfg.expect_nsamples
         # non-final segments carry REAL lookahead samples past the scan
-        # bound `total_nf` (up to segment_len); u8 wires must not
-        # tail-mask them away (expand_wire's `extra`)
+        # bound `total_nf` (up to segment_len); u8 and dpack wires must
+        # not tail-mask them away (expand_wire's `extra`)
         u8x = (max(0, self.segment_len - total_nf)
-               if in_dtype in U8_ENCODINGS else 0)
+               if in_dtype in U8_ENCODINGS or dp is not None else 0)
         t_total = _round_up_pow2(total_nf + cfg.nsamples_overscan + 1)
 
         starts = []
@@ -491,10 +538,19 @@ class PipelinedReceiver:
         t_total_f = _round_up_pow2(tail_total + cfg.nsamples_overscan + 1)
 
         dev = self.device
-        run_nf = mega_runner(self.key, t_total, self.rx_one, in_dtype,
-                             False, u8x, self.compact)
-        run_f = mega_runner(self.key, t_total_f, self.rx_one, in_dtype, True,
-                            0, self.compact)
+        runners = {}
+
+        def runner(raw: bool, final: bool):
+            """The program for a segment's wire; the raw int16 runners
+            (a dpack stream's fallback) share the carry format and are
+            built at first need."""
+            if (raw, final) not in runners:
+                runners[raw, final] = mega_runner(
+                    self.key, t_total_f if final else t_total, self.rx_one,
+                    "int16" if raw else in_dtype, final,
+                    0 if raw or final else u8x, self.compact)
+            return runners[raw, final]
+
         thr = (float(conf_threshold), float(conf_search_limit))
         halo = self.geo.halo
         # segment table: (start, scored length, totals, final)
@@ -505,31 +561,77 @@ class PipelinedReceiver:
         wire_t = {"int16": torch.int16, "float32": torch.float32}.get(
             in_dtype, torch.uint8)
 
-        def upload(j):
-            s0, tt, _, final = segs[j]
-            seg = samples[s0:n if final else s0 + self.segment_len]
-            host = up.host_buffer((1, tt + halo), wire_t)
+        def host_raw(seg, tt, raw: bool):
+            """The raw wire's host buffer: the samples, then silence."""
+            host = up.host_buffer((1, tt + halo),
+                                  torch.int16 if raw else wire_t)
             hx = host.numpy()
             hx.fill(PAD_BYTE[in_encoding] if in_encoding else 0)
             m = min(len(seg), hx.shape[1])
             hx[0, :m] = seg[:m]
-            return up.put(host)
+            return host, raw
+
+        def host_of(j):
+            """Segment j's filled host buffer (no device call), and
+            whether it rides the raw int16 wire of a dpack stream."""
+            s0, tt, _, final = segs[j]
+            seg = samples[s0:n if final else s0 + self.segment_len]
+            if dp is None:
+                return host_raw(seg, tt, False)
+            if len(seg) > tt + halo:
+                # clipped: the raw buffer zero-fills where the packed
+                # hold-tail would survive the mask
+                return host_raw(seg, tt, True)
+            k, w, n_packed, e_cap = dp
+            host = up.host_buffer(
+                (1, wirepack.row_bytes(n_packed, k, w, e_cap) // 2),
+                torch.int16)
+            try:
+                wirepack.pack(seg, n_packed, k, w, e_cap,
+                              out=host.numpy().view(np.uint8).reshape(-1))
+            except ValueError:               # denser content: raw wire
+                return host_raw(seg, tt, True)
+            return host, False
+
+        # a dpack segment's pack is host work as long as several decodes
+        # (PERF.md section 5), so segment prep runs on a pool of two
+        # workers, two segments ahead; uploads stay in segment order, one
+        # ahead of the decode
+        pool = ThreadPoolExecutor(max_workers=2) if dp is not None else None
+        preps = {}
+
+        def upload(j):
+            if pool is None:
+                host, raw = host_of(j)
+            else:
+                for a in range(j, min(j + 2, len(segs))):
+                    if a not in preps:
+                        preps[a] = pool.submit(host_of, a)
+                host, raw = preps.pop(j).result()
+            return up.put(host), raw
 
         ci, cf = (torch.from_numpy(a).to(dev)
                   for a in MegaReceiver.carry_to_arrays(None, 1))
-        pending = upload(0)
-        for i, (_, _, total_i, final) in enumerate(segs):
-            x = up.take(pending)
-            totals = torch.tensor([total_i], dtype=torch.int32, device=dev)
-            out = (run_f if final else run_nf)(x, totals, thr, ci, cf)
-            if not final:
-                # rebase the carried position onto the next segment's
-                # origin (on the device: no host sync between segments)
-                ci = out[4].clone()
-                ci[:, 0] -= self.step
-                cf = out[5]
-                pending = upload(i + 1)
-            yield _collect(out[:4], 1, self.compact)[0]
+        try:
+            pending = upload(0)
+            for i, (_, _, total_i, final) in enumerate(segs):
+                handle, raw = pending
+                self.raw_segments += raw
+                x = up.take(handle)
+                totals = torch.tensor([total_i], dtype=torch.int32,
+                                      device=dev)
+                out = runner(raw, final)(x, totals, thr, ci, cf)
+                if not final:
+                    # rebase the carried position onto the next segment's
+                    # origin (on the device: no host sync between segments)
+                    ci = out[4].clone()
+                    ci[:, 0] -= self.step
+                    cf = out[5]
+                    pending = upload(i + 1)
+                yield _collect(out[:4], 1, self.compact)[0]
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
 
 
 class DeviceStreamReceiver:

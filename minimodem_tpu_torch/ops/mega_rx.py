@@ -75,6 +75,7 @@ from .device_rx import (
     plane_names,
     wire_dtype,
 )
+from .wirepack import parse_spec, unpack_expand
 
 W_LANES = 128
 # largest scan window the JAX megakernel serves (pallas_rx.py:93); the JAX
@@ -622,18 +623,25 @@ def mega_runner(cfg_key, t_total: int, rx_one: bool, input_dtype: str,
     """The packer + state machine program for one geometry, scored length,
     wire dtype and output mode (the counterpart of pallas_rx._mega_run_fn
     and device_rx._build_device_rx), for any batch and device.  Returns
-    run(x [B, t_total + halo], totals [B] i32, (thr, limit), carry_i,
-    carry_f) -> (ev, n_ev, bytes, n_by, carry_i_out, carry_f_out) on x's
-    device."""
+    run(x [B, t_total + halo] (a dpack wire: [B, its row]), totals [B]
+    i32, (thr, limit), carry_i, carry_f) -> (ev, n_ev, bytes, n_by,
+    carry_i_out, carry_f_out) on x's device."""
     st = MegaStatics.build(cfg_key, t_total, rx_one, compact,
                            stop_on_overflow)
     u8 = input_dtype in U8_ENCODINGS
+    # u8 and dpack wires expand to float32 and zero every position past
+    # totals + u8_extra (real lookahead samples past a segment's scan
+    # bound) before the packer
+    dp = parse_spec(input_dtype)
     packer, _ = make_score_packer_planes(
-        cfg_key, t_total, "float32" if u8 else input_dtype)
+        cfg_key, t_total, "float32" if u8 or dp else input_dtype)
     mega = MegaRx(st)
+    n_x = t_total + geo_from_key(cfg_key).halo
 
     def run(x, totals, thr, carry_i, carry_f):
-        if u8:
+        if dp:
+            x = unpack_expand(x, totals, *dp, n_x, u8_extra)
+        elif u8:
             x = expand_wire(x, totals, input_dtype, u8_extra)
         return mega(packer(x), totals, thr, carry_i, carry_f, finalize)
 
@@ -704,9 +712,14 @@ class MegaReceiver:
         in_dtype = wire_dtype(samples, in_encoding)
         run = mega_runner(self.key, t_total, self.rx_one, in_dtype,
                           finalize, 0, self.compact, self.stop_on_overflow)
-        row = t_total + halo
-        x = alloc_wire((b, row), samples.dtype, in_encoding)
-        x[:, :min(L, row)] = samples[:, :row]
+        if parse_spec(in_dtype):
+            # dpack rows pass through at the caller's capacity: the wire
+            # row is the upload
+            x = np.ascontiguousarray(samples)
+        else:
+            row = t_total + halo
+            x = alloc_wire((b, row), samples.dtype, in_encoding)
+            x[:, :min(L, row)] = samples[:, :row]
         ci, cf = self.carry_to_arrays(carry, b)
         out = run(torch.from_numpy(x).to(dev), torch.from_numpy(totals).to(dev),
                   (conf_threshold, conf_search_limit),

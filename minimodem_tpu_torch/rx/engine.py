@@ -154,7 +154,7 @@ class Receiver:
 
     # ------------------------------------------------------------------
     def run(self, samples: np.ndarray, engine: str = "auto",
-            in_encoding: str = None) -> int:
+            in_encoding: str = None, wire_pack="auto") -> int:
         """Decode a sample stream.
 
         engine: "device" = the device-resident state machine, "host" =
@@ -165,7 +165,11 @@ class Receiver:
         in_encoding: u8 wire encoding ("ulaw"/"alaw"/"pcm8") of a raw
         uint8 sample array — the device engine ships 1 byte/sample and
         expands on the device (bit-identical values); the host engines
-        expand up front."""
+        expand up front.
+
+        wire_pack: "auto"/True/False — the lossless delta-bitpack wire
+        for int16 device uploads (ops/wirepack.py,
+        PipelinedReceiver.run); the device engine without -a only."""
         _device.require(self.device)
         if engine == "auto":
             engine = "device"
@@ -174,7 +178,7 @@ class Receiver:
                 if in_encoding:
                     samples = self._expand_u8(samples, in_encoding)
                 return self._run_device_autodetect(samples)
-            return self._run_device(samples, in_encoding)
+            return self._run_device(samples, in_encoding, wire_pack)
         if engine not in ("host", "host-native"):
             raise ValueError(f"unknown engine {engine!r}")
         if in_encoding:
@@ -187,7 +191,7 @@ class Receiver:
 
     # ------------------------------------------------------------------
     def _run_device(self, samples: np.ndarray,
-                    in_encoding: str = None) -> int:
+                    in_encoding: str = None, wire_pack="auto") -> int:
         """Event-stream path: ops/device_rx.py runs the whole pipeline on
         the device; this loop only renders events (codecs + protocol
         lines).  Long streams go through the pipelined receiver so
@@ -203,7 +207,7 @@ class Receiver:
         for seg_events in rxer.run(
                 np.ascontiguousarray(samples, dtype),
                 opts.confidence_threshold, opts.confidence_search_limit,
-                in_encoding=in_encoding):
+                in_encoding=in_encoding, wire_pack=wire_pack):
             rc = self.render_events(*seg_events)
         return rc
 

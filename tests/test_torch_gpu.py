@@ -454,6 +454,71 @@ def test_pipelined_cuda_equals_cpu(cuda):
     assert outs[1][0] == p1 + b"tail"
 
 
+@pytest.mark.parametrize("k", [0, 2, 5])
+def test_wirepack_unpack_cuda_equals_cpu(cuda, k):
+    """unpack_expand on the card: every float32 word of the row equals the
+    CPU's and the raw int16 wire's normalization on the card, the masked
+    tail included (a tone that starts negative, an escape pattern,
+    silence; w 8 and 12)."""
+    from minimodem_tpu_torch.ops import wirepack as wp
+    from minimodem_tpu_torch.ops.device_rx import normalize_input
+
+    n = 50000
+    tone = (np.sin(2 * np.pi * 2200 / 48000 * np.arange(n) + 4.0)
+            * 32000).astype(np.int16)
+    esc = np.resize(np.array([0, 0, 32767, -32768], np.int16), n)
+    xs = [tone, esc, np.zeros(n, np.int16)]
+    totals = [n, n - 777, n // 2]
+    n_target = n + 1000
+    for w in (8, 12):
+        e_cap = wp.exc_capacity(max(wp.count_exceptions(x, k, w) for x in xs))
+        wire = np.stack([wp.pack(x, n, k, w, e_cap).view(np.int16)
+                         for x in xs])
+        tot = torch.tensor(totals, dtype=torch.int32)
+        spec = (k, w, n, e_cap, n_target)
+        got = wp.unpack_expand(torch.from_numpy(wire).to(cuda),
+                               tot.to(cuda), *spec).cpu().numpy()
+        ref = wp.unpack_expand(torch.from_numpy(wire), tot, *spec).numpy()
+        raw = np.zeros((3, n_target), np.int16)
+        for i, (x, t) in enumerate(zip(xs, totals)):
+            raw[i, :t] = x[:t]
+        norm = normalize_input(torch.from_numpy(raw).to(cuda),
+                               "int16").cpu().numpy()
+        np.testing.assert_array_equal(got.view(np.uint32), ref.view(np.uint32))
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      norm.view(np.uint32))
+
+
+def test_wirepack_decode_cuda_equals_raw(cuda):
+    """A segmented stream on the packed wire on the card: per-segment
+    events equal the raw int16 wire's on the card and the packed wire's
+    on the CPU, through K1 and K2 (no plain call on the card)."""
+    from minimodem_tpu_torch.ops.device_rx import PipelinedReceiver
+    from minimodem_tpu_torch.ops.fused_score import (FusedScorer,
+                                                     score_planes_plain)
+    from minimodem_tpu_torch.ops.mega_rx import MegaRx, mega_rx_plain
+
+    m = _modem("1200")
+    p1 = bytes(33 + (i % 94) for i in range(300))
+    wav = np.concatenate([m.modulate(p1), np.zeros(48000, np.float32),
+                          m.modulate(b"tail")])
+    s16 = np.clip(np.rint(wav * 32768.0), -32768, 32767).astype(np.int16)
+
+    def run(dev, wire_pack):
+        pr = PipelinedReceiver(m.cfg, segment_len=1 << 16, device=dev)
+        return [tuple(np.asarray(a).tobytes() for a in seg)
+                for seg in pr.run(s16, THR, LIM, wire_pack=wire_pack)]
+
+    raw = run(cuda, False)
+    launches = FusedScorer.launches, MegaRx.launches
+    plain = score_planes_plain.calls + mega_rx_plain.calls
+    packed = run(cuda, True)
+    assert FusedScorer.launches - launches[0] == len(packed) >= 3
+    assert MegaRx.launches - launches[1] == len(packed)
+    assert score_planes_plain.calls + mega_rx_plain.calls == plain
+    assert packed == raw == run("cpu", True)
+
+
 def _stream_events(cfg, samples, feed_size, device, **kw):
     from minimodem_tpu_torch.ops.device_rx import DeviceStreamReceiver
 

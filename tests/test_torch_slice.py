@@ -165,8 +165,9 @@ def test_modem_api_matches_jax(tmp_path):
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports neither jax nor minimodem_tpu: with jax blocked in
-    sys.modules it still decodes a WAV, runs the on-device loopback and
-    the fleet service (a world of one) on the CPU."""
+    sys.modules it still decodes a WAV, decodes on the delta-bitpack wire
+    (wire_pack=True), runs the on-device loopback and the fleet service
+    (a world of one) on the CPU."""
     path = str(tmp_path / "blocked.wav")
     text = b"no jax here\n"
     _write_wav(path, FskModem("1200").modulate(text), "pcm16")
@@ -187,6 +188,12 @@ def test_port_runs_with_jax_blocked(tmp_path):
         "w = FskModem('1200', device='cpu').modulate(b'fleet')\n"
         "outs, st = ShardedReceiver(cfg, device='cpu').decode_batch([w])\n"
         "assert outs == [b'fleet'] and st['devices'] == 1, (outs, st)\n"
+        "import numpy as np\n"
+        "w16 = (w * 32767).astype(np.int16)\n"
+        "from minimodem_tpu_torch.ops.wirepack import choose_params\n"
+        "assert choose_params(w16) is not None\n"
+        "m = FskModem('1200', device='cpu')\n"
+        "assert m.demodulate(w16, wire_pack=True) == b'fleet'\n"
         "rc = c.main(['--rx', '--file', sys.argv[1], '1200', "
         "'--device', 'cpu'])\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and "
