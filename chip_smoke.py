@@ -130,7 +130,18 @@ one line each; any failure exits non-zero:
      split: the host pack of a 2^21-sample segment (MB/s), pinned uploads
      of the raw and the packed row, the device unpack (time and kernels),
      the warm decode walls raw and packed in turns (the phase-4 file and
-     a 120 s stream) and the link rate below which the packed wire pays.
+     a 120 s stream) and the link rate below which the packed wire pays;
+ 22. the entry points beside the CLI: the headline runner `python -m
+     minimodem_tpu_torch.bench` at its defaults in a child process
+     (B = 128 x 64.3 s; rc 0, the root bench.py's key tree, decode_exact
+     true; its JSON line printed), the sp scaling curve's main at sp = 1,
+     2, 4 (NCCL where the machine has sp cards, else gloo ranks sharing
+     cuda:0; every row decode-exact) and `live_soak --selfcheck`'s main;
+     each with its launches (the counts set to 0 just before it and read
+     just after; in the curve, on each rank: K1 and K2 launched, plain
+     calls 0) and K1's and K2's last launches in it (K1 on each rank's
+     time shard, K2 on the gathered planes) held against their plain
+     versions on the same inputs.
 
 The kernels' JSON summary (each entry with its launches on the device
 engine's file decode, as loopback_launches on the loopback, and for K1
@@ -143,7 +154,9 @@ decomposition_launches, per rank and case of phase 19, and
 cards_launches, per rank of phase 20 (empty on one card); K1's and K2's
 have wirepack_launches, their launches on phase 21's packed decode of
 the phase-4 file, and K2's and K3's wirepack_uic_launches on its packed
-uic-train decode.
+uic-train decode; every entry has runner_launches, its launches in
+phase 22's runner, curve_launches, per sp and rank of its sp curve, and
+selfcheck_launches, in its live_soak --selfcheck.
 """
 
 from __future__ import annotations
@@ -169,6 +182,26 @@ HBM_BPS, FP32_FLOPS = 3.35e12, 67e12
 K2_STEP_NS_ESTIMATE = 50.0
 # the batched loopback's headline shape (the JAX package's bench.py)
 HEAD_BATCH, HEAD_SECONDS = 128, 64.3
+# the key tree of the headline runner's JSON line, with each value's JSON
+# type: the root bench.py's (tests/test_torch_runner.py holds both
+# runners to it on the CPU)
+_MODE_KEYS = {"real_time_factor": "float", "decode_exact": "bool",
+              "audio_seconds": "float"}
+RUNNER_KEYS = {
+    "metric": "str", "value": "float", "unit": "str", "vs_baseline": "float",
+    "decode_exact": "bool", "batch": "int",
+    "single_stream_realtime_factor": "float", "e2e_realtime_factor": "float",
+    "e2e_ulaw_realtime_factor": "float", "e2e_audio_seconds": "float",
+    "audio_seconds_total": "float",
+    "single_call_batched_realtime_factor": "float",
+    "pipelined_batches": "int", "pipelined_realtime_factor": "float",
+    "fleet_realtime_factor": "float", "fleet_devices": "int",
+    "fleet_ingest_realtime_factor": "float", "fleet_ingest_mega": "bool",
+    "modes": {"rtty": _MODE_KEYS, "same": _MODE_KEYS,
+              "callerid": {**_MODE_KEYS, "batch": "int",
+                           "batch_latency_ms": "float",
+                           "single_burst_latency_ms": "float"}},
+}
 
 
 def fail(msg: str) -> None:
@@ -2598,6 +2631,171 @@ def wirepack_phase(s16, text: bytes, card: str, dev) -> dict:
     return res
 
 
+# ======================================================================
+# 22. the entry points beside the CLI: the runner, the sp curve, the soak
+# ======================================================================
+
+# the runner in a child process of its own, as a user starts it, with
+# the launch counts set to 0 just before its main and read just after,
+# then each kernel's last launch in it held against its plain version
+RUNNER_CHILD = """
+import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+from minimodem_tpu_torch import bench
+counts = chip_smoke.reset_counts()
+with chip_smoke.last_inputs() as seen:
+    rc = bench.main([])
+n = chip_smoke.read_counts(counts)
+print(json.dumps({{"launches": n, "held": chip_smoke.hold_last(seen)}}),
+      file=sys.stderr)
+sys.exit(rc)
+"""
+# the sp curve at the JAX script's defaults (30 s, one stream)
+CURVE_SP, CURVE_SECONDS = "1,2,4", "30"
+
+
+def key_tree(obj):
+    """{key: key tree} for a dict, else the JSON type's name."""
+    if isinstance(obj, dict):
+        return {k: key_tree(v) for k, v in obj.items()}
+    return type(obj).__name__
+
+
+def module_run(argv, timeout: float):
+    """python -m <argv> from the checkout -> (rc, stdout, stderr, wall)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *argv], capture_output=True,
+                       text=True, cwd=ROOT, timeout=timeout)
+    return r.returncode, r.stdout, r.stderr, time.perf_counter() - t0
+
+
+def curve_rank(sp, device, waves, payloads) -> dict:
+    """One rank of phase 22's sp curve: the script's own rank
+    (_rank_curve: a warm call, the decode check, the best of 3 walls)
+    with the rank's launches (counts set to 0 just before, read just
+    after), then K1 on the rank's time shard and K2 on its (at sp > 1,
+    the gathered) planes held against their plain versions
+    (hold_last)."""
+    from minimodem_tpu_torch.scripts.sp_scaling_curve import _rank_curve
+
+    counts = reset_counts()
+    with last_inputs() as seen:
+        r = _rank_curve(sp, device, waves, payloads)
+    r["launches"] = read_counts(counts)
+    r["held"] = hold_last(seen)
+    return r
+
+
+def held_ok(n: dict, held: dict) -> bool:
+    """K1 and K2 launched, no plain call, and both held equal to their
+    plain versions."""
+    return (min(n["fused_score"], n["mega_rx"]) >= 1 and not n["plain"]
+            and {"fused_score", "mega_rx"} <= set(held)
+            and all(h["ok"] for h in held.values()))
+
+
+def entry_points_phase(card: str) -> dict:
+    """Phase 22: `python -m minimodem_tpu_torch.bench` at its defaults
+    in a child process (rc 0, the root bench.py's key tree, decode_exact
+    true), the sp scaling curve's main at sp = 1, 2, 4 (every row
+    decode-exact, naming its backend and cards) and the live soak's
+    --selfcheck main on the card.  Each path with its launches (counts
+    set to 0 just before it, read just after; in the curve, per rank)
+    and K1's and K2's last launches in it held against their plain
+    versions: K1 and K2 launched, plain calls 0, both equal."""
+    import torch
+    from minimodem_tpu_torch.parallel import launch
+    from minimodem_tpu_torch.scripts import live_soak, sp_scaling_curve
+
+    rc, out, err, wall = module_run(
+        ["-c", RUNNER_CHILD.format(root=str(ROOT))], 900)
+    lines = out.strip().splitlines()
+    if rc != 0 or not lines:
+        fail(f"the runner exited {rc}: {err[-2000:]}")
+    line = json.loads(lines[-1])
+    child = json.loads(err.strip().splitlines()[-1])
+    counts, held = child["launches"], child["held"]
+    if key_tree(line) != RUNNER_KEYS or line["decode_exact"] is not True:
+        fail(f"the runner's JSON line: {lines[-1]}")
+    if not held_ok(counts, held):
+        fail(f"the runner's launches: {counts}; held: {held}")
+    for s in lines[:-1]:
+        phase(f"runner: {s}")
+    phase(f"runner JSON line ({card}): {lines[-1]}")
+    phase(f"runner: rc {rc}, wall {wall:.1f} s (the process's start and "
+          f"the rows' set-up included); launches with the counts set to 0 "
+          f"just before its main: K1 {counts['fused_score']}, K2 "
+          f"{counts['mega_rx']}, K3 one-row {counts['correlate']}, K3 rows "
+          f"{counts['correlate_batch']}, plain calls {counts['plain']}; "
+          f"its last launches: {held_line(held)} ({card})")
+
+    # the script's main as a user calls it, its worlds' ranks each
+    # wrapped by curve_rank
+    ranks, spawn = {}, launch.spawn_world
+
+    def counted_world(fn, n, args=(), backend="gloo", **kw):
+        if fn is not sp_scaling_curve._rank_curve:
+            raise RuntimeError(f"the sp curve spawned {fn}")
+        ranks[n] = spawn(curve_rank, n, args, backend, **kw)
+        return ranks[n]
+
+    buf = io.StringIO()
+    launch.spawn_world = counted_world
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = sp_scaling_curve.main([CURVE_SECONDS, "1", "--sp", CURVE_SP])
+    finally:
+        launch.spawn_world = spawn
+    curve_wall = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0 or not lines:
+        fail(f"the sp curve exited {rc}: {buf.getvalue()[-2000:]}")
+    curve = json.loads(lines[-1])["curve"]
+    sps = [int(v) for v in CURVE_SP.split(",")]
+    if ([r["sp"] for r in curve] != sps or sorted(ranks) != sps
+            or not all(r["decode_exact"] and r["backend"] in ("nccl", "gloo")
+                       and r["cards"] >= 1 for r in curve)):
+        fail(f"the sp curve: {lines[-1]}")
+    for r in curve:
+        phase(f"sp curve ({r['backend']}, {r['cards']} card(s)): "
+              f"{json.dumps(r)} ({card})")
+        for i, res in enumerate(ranks[r["sp"]]):
+            n = res["launches"]
+            if not held_ok(n, res["held"]):
+                fail(f"sp curve sp {r['sp']} rank {i}: {n}; {res['held']}")
+            phase(f"sp curve sp {r['sp']} rank {i} ({res['device']}): K1 "
+                  f"{n['fused_score']}, K2 {n['mega_rx']}, plain "
+                  f"{n['plain']}; {held_line(res['held'])}")
+    phase(f"sp curve: {json.loads(lines[-1])['audio_seconds']:.2f} audio s "
+          f"a decode; wall {curve_wall:.1f} s for the three worlds")
+
+    buf = io.StringIO()
+    sc = reset_counts()
+    with last_inputs() as seen, contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        rc = live_soak.main(["--selfcheck"])
+        soak_wall = time.perf_counter() - t0
+    soak_n = read_counts(sc)
+    soak_held = hold_last(seen)
+    del seen
+    torch.cuda.empty_cache()
+    out = buf.getvalue()
+    if (rc != 0 or not out.startswith("selfcheck: PASS")
+            or not held_ok(soak_n, soak_held)):
+        fail(f"live_soak --selfcheck exited {rc}: {out} {soak_n} "
+             f"{soak_held}")
+    phase(f"live_soak --selfcheck on the card: {out.strip()} "
+          f"({soak_wall:.1f} s); K1 {soak_n['fused_score']}, K2 "
+          f"{soak_n['mega_rx']}, plain {soak_n['plain']}; "
+          f"{held_line(soak_held)} ({card})")
+    return {"launches": counts, "line": line, "curve": curve,
+            "curve_launches": {f"sp={sp}": [r["launches"] for r in ranks[sp]]
+                               for sp in sps},
+            "selfcheck_launches": soak_n}
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3044,6 +3242,14 @@ def main() -> int:
     # ---- 21. the delta-bitpack wire ----
     wpk = wirepack_phase(s16_file, text, card, dev)
 
+    # ---- 22. the runner, the sp curve and the soak ----
+    ent = entry_points_phase(card)
+    rl, sl = ent["launches"], ent["selfcheck_launches"]
+
+    def curve_launches(k: str) -> dict:
+        return {sp: [n[k] for n in per_rank]
+                for sp, per_rank in ent["curve_launches"].items()}
+
     # K1: the audio row read and the planes written once; 4 * nb FMAs per
     # scored offset (stage 2's comb sums are a few percent more)
     geo1 = scorer.geo
@@ -3077,6 +3283,9 @@ def main() -> int:
              r["launches"]["fused_score"] for r in dec["rows"]],
          "cards_launches": [r["fused_score"] for r in cards["launches"]],
          "wirepack_launches": wpk["launches"]["fused_score"],
+         "runner_launches": rl["fused_score"],
+         "curve_launches": curve_launches("fused_score"),
+         "selfcheck_launches": sl["fused_score"],
          "loopback_ms": lk["k1_ms"], "loopback_kernel_ms": lk["k1_kernel_ms"],
          "loopback_plain_ms": lk["k1_plain_ms"],
          "loopback_bound_ms": lk["k1_bound"][0],
@@ -3096,6 +3305,9 @@ def main() -> int:
          "cards_launches": [r["mega_rx"] for r in cards["launches"]],
          "wirepack_launches": wpk["launches"]["mega_rx"],
          "wirepack_uic_launches": wpk["uic_launches"]["mega_rx"],
+         "runner_launches": rl["mega_rx"],
+         "curve_launches": curve_launches("mega_rx"),
+         "selfcheck_launches": sl["mega_rx"],
          "geometry_launches": {r["name"]: r["launches"]["mega_rx"]
                                for r in geo_rows},
          "geometry_batch_launches": {r["name"]: r["batch_launches"]["mega_rx"]
@@ -3117,6 +3329,9 @@ def main() -> int:
          "library_device_ms": k3a["library_device_ms"],
          "loopback_launches": 0, "fleet_launches": fl["correlate"],
          "wirepack_uic_launches": wpk["uic_launches"]["correlate"],
+         "runner_launches": rl["correlate"],
+         "curve_launches": curve_launches("correlate"),
+         "selfcheck_launches": sl["correlate"],
          "geometry_launches": {r["name"]: r["launches"]["correlate"]
                                for r in geo_rows if r["route"] == "K3"}},
         {"name": "correlate_batch", "route": "cuda",
@@ -3131,6 +3346,9 @@ def main() -> int:
          "loopback_launches": 0,
          "fleet_launches": fl["correlate_batch"],
          "wirepack_uic_launches": wpk["uic_launches"]["correlate_batch"],
+         "runner_launches": rl["correlate_batch"],
+         "curve_launches": curve_launches("correlate_batch"),
+         "selfcheck_launches": sl["correlate_batch"],
          "geometry_batch_launches": {
              r["name"]: r["batch_launches"]["correlate_batch"]
              for r in geo_rows if r["route"] == "K3"}},

@@ -1,6 +1,9 @@
 """--benchmarks mode: tone-generator throughput in 4 configurations
 (reference: src/minimodem.c:305-365), plus the decode throughput rows that
-the device engine and the on-device loopback serve.
+the device engine and the on-device loopback serve, and `main`, the
+headline runner:
+
+    python -m minimodem_tpu_torch.bench [audio_seconds] [batch] [--device cuda|cpu]
 
 Counterpart of minimodem_tpu/bench.py: the same rows and result keys, run
 on an explicit `device` (default "cuda"; "cpu" runs the kernels' plain
@@ -12,6 +15,9 @@ CPU.
 
 from __future__ import annotations
 
+import gc
+import json
+import os
 import subprocess
 import sys
 import time
@@ -633,3 +639,131 @@ def loopback_throughput(mode: str = "1200", audio_seconds: float = 60.0,
         "real_time_factor": audio_sec / dt,
         "decode_exact": bool(ok),
     }
+
+
+def main(argv=None) -> int:
+    """The headline runner, the counterpart of the repository's root
+    bench.py: the same rows at the same sizes in the same order, and as
+    the last line of stdout one JSON object with exactly that runner's
+    keys.  Exit code 0 only when every row decoded exact.
+
+    value is the best of the synchronous and the pipelined batched
+    loopback; vs_baseline is value / 1000, where 1000x real time is the
+    target figure of BASELINE.json, not a measurement.  Before the JSON
+    line: the card's name and power limit, the torch and CUDA versions,
+    and each row's wall on a line of its own.  Under torchrun every rank
+    runs the rows on its own card (cuda:LOCAL_RANK), the fleet rows on
+    the whole world, and rank 0 prints.  Without a card a "cuda" run
+    exits 1 after one E: line; nothing falls back to the CPU."""
+    import argparse
+
+    import torch
+    import torch.distributed as dist
+
+    from .cli import _card_ready
+    from .parallel.sharding import rank_device
+
+    ap = argparse.ArgumentParser(
+        prog="python -m minimodem_tpu_torch.bench",
+        description="the headline runner: batched, single-stream, fleet, "
+                    "e2e and per-mode real-time factors as one JSON line")
+    ap.add_argument("audio_seconds", type=float, nargs="?", default=64.3,
+                    help="seconds of audio a stream (default 64.3)")
+    ap.add_argument("batch", type=int, nargs="?", default=128,
+                    help="streams a batch (default 128)")
+    ap.add_argument("--device", choices=("cuda", "cpu"),
+                    default=_device.DEFAULT)
+    args = ap.parse_args(argv)
+    if not _card_ready(args.device):
+        return 1
+    dev = rank_device(args.device)
+    audio_seconds, batch = args.audio_seconds, args.batch
+    talk = int(os.environ.get("RANK", "0")) == 0
+    if talk:
+        print(_device_model(dev), flush=True)
+        print(f"torch {torch.__version__} cuda {torch.version.cuda}",
+              flush=True)
+
+    def row(name: str, fn, *a, **kw) -> dict:
+        # each row warms itself; its buffers go before the next row starts
+        r = fn(*a, device=dev, **kw)
+        if talk:
+            print(f"row {name}: {r['audio_seconds']:.2f} audio s in "
+                  f"{r['wall_seconds'] * 1e3:.2f} ms = "
+                  f"{r['real_time_factor']:.2f}x real time, decode exact "
+                  f"{r['decode_exact']}", flush=True)
+        if dev.type == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
+        return r
+
+    blb = row("batched", batched_loopback_throughput, "1200",
+              audio_seconds=audio_seconds, batch=batch)
+    blb2 = row("batched pipelined", batched_loopback_throughput, "1200",
+               audio_seconds=audio_seconds, batch=batch, pipeline=8)
+    best = max(blb["real_time_factor"], blb2["real_time_factor"])
+    lb = row("single stream", loopback_throughput, "1200",
+             audio_seconds=audio_seconds, repeats=3)
+    fleet = row("fleet loopback", fleet_loopback_throughput, "1200",
+                audio_seconds=audio_seconds, batch=batch)
+    fleet_in = row("fleet ingest u-law", fleet_ingest_throughput, "1200",
+                   audio_seconds=30.0, batch=8, repeats=3)
+    e2e = row("e2e pcm16", decode_throughput, "1200",
+              audio_seconds=2 * audio_seconds, repeats=3)
+    e2e_u = row("e2e u-law", decode_throughput, "1200",
+                audio_seconds=2 * audio_seconds, repeats=3, encoding="ulaw")
+
+    modes = {}
+    for mode_name in ("rtty", "same"):
+        r = row(mode_name, mode_loopback_throughput, mode_name,
+                audio_seconds=15.0, batch=8)
+        modes[mode_name] = {
+            "real_time_factor": round(r["real_time_factor"], 2),
+            "decode_exact": r["decode_exact"],
+            "audio_seconds": round(r["audio_seconds"], 2),
+        }
+    r = row("callerid", callerid_throughput, batch=128, pipeline=4)
+    modes["callerid"] = {
+        "real_time_factor": round(r["real_time_factor"], 2),
+        "decode_exact": r["decode_exact"],
+        "audio_seconds": round(r["audio_seconds"], 2),
+        "batch": r["batch"],
+        "batch_latency_ms": round(r["batch_latency_ms"], 1),
+        "single_burst_latency_ms": round(r["single_burst_latency_ms"], 1),
+    }
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+    ok = all(r["decode_exact"]
+             for r in (blb, blb2, lb, e2e, e2e_u, fleet, fleet_in)) \
+        and all(m["decode_exact"] for m in modes.values())
+    out = {
+        "metric": "bell202_48k_decode_realtime_factor",
+        "value": round(best, 2),
+        "unit": "x_realtime_per_chip",
+        "vs_baseline": round(best / 1000.0, 4),
+        "decode_exact": ok,
+        "batch": batch,
+        "single_stream_realtime_factor": round(lb["real_time_factor"], 2),
+        "e2e_realtime_factor": round(e2e["real_time_factor"], 2),
+        "e2e_ulaw_realtime_factor": round(e2e_u["real_time_factor"], 2),
+        "e2e_audio_seconds": round(e2e["audio_seconds"], 2),
+        "audio_seconds_total": round(blb["audio_seconds"], 2),
+        "single_call_batched_realtime_factor": round(
+            blb["real_time_factor"], 2),
+        "pipelined_batches": blb2["pipeline"],
+        "pipelined_realtime_factor": round(blb2["real_time_factor"], 2),
+        "fleet_realtime_factor": round(fleet["real_time_factor"], 2),
+        "fleet_devices": fleet["devices"],
+        "fleet_ingest_realtime_factor": round(
+            fleet_in["real_time_factor"], 2),
+        "fleet_ingest_mega": fleet_in["mega"],
+        "modes": modes,
+    }
+    if talk:
+        print(json.dumps(out), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

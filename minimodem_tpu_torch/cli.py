@@ -221,13 +221,13 @@ def _presplit_optional_args(argv: list) -> list:
     return out
 
 
-def _card_ready(device: str) -> bool:
-    """False, after one E: line, when --device cuda has no card."""
+def _card_ready(device: str, flag: str = "--device") -> bool:
+    """False, after one E: line, when `flag` cuda has no card."""
     if device == "cuda":
         import torch
         if not torch.cuda.is_available():
-            sys.stderr.write("E: --device cuda: no CUDA device is "
-                             "available (use --device cpu)\n")
+            sys.stderr.write(f"E: {flag} cuda: no CUDA device is "
+                             f"available (use {flag} cpu)\n")
             return False
     return True
 
