@@ -48,18 +48,28 @@ one line each; any failure exits non-zero:
      B = 4 and at one 64.3 s stream, device_synthesize_frames at rtty,
      and `--synth-backend jax` (LUT 4096 and 16 bit-identical to the
      numpy backend in S16 and FLOAT, the direct sine within one ulp);
+     then K4, the loopback's synthesis (csrc/tx_synth.cu), against its
+     plain route into buffers filled with NaN: flat schedules bit for bit
+     at B = 4 x 4096 bits, at one 64.3 s stream and at the whole headline
+     buffer [128, 3146168] (zero tail and halo included), frame schedules
+     (rtty, tdd, Bell-202 with 1.5 stop bits; n_frames F_pad, partial, 0)
+     within turns_atol, each also against the plain route on the CPU with
+     its count of differing samples; K4 timed at the headline buffer;
  12. the on-device loopback against device="cpu", event for event:
      1200 and SAME (flat schedules) and Bell-202 with 1.5 stop bits
      (frame schedules), two streams each;
  13. the loopback's main path, the bench rows on the card: K1 and K2
      held against their plain versions at the headline shape (B = 128
-     streams of 64.3 s of Bell-202 synthesized on the card), then with
-     the launch counts set to 0, the batched row synchronous and
+     streams of 64.3 s of Bell-202 synthesized on the card by K4), then
+     with the launch counts set to 0, the batched row synchronous and
      pipelined 8 deep (every stream of every batch verified), the counts
-     read; then rtty and SAME (B = 8, 15 s), Caller-ID (B = 128,
-     pipeline 4) and the --benchmarks decode rows (60 s);
- 14. a torch.profiler stage split of one warm B = 128 batch (synthesis,
-     K1, K2, upload, collect; the device idle share; how soon the host's
+     read (K1, K2 and K4 launched, no plain call, the synthesis' among
+     them); then, the counts set to 0 again, rtty (K4's frames entry) and
+     SAME (B = 8, 15 s), Caller-ID (B = 128, pipeline 4) and the
+     --benchmarks decode rows (60 s);
+ 14. a torch.profiler stage split of one warm B = 128 batch (K4's
+     synthesis, K1, K2, upload, collect; the device idle share; how soon
+     the host's
      dispatch returned), its peak device memory, and K1 / K2 timed at
      the loopback's shape beside their bounds;
  15. the geometries K1 does not serve, at their full width, each a ~60 s
@@ -156,7 +166,13 @@ have wirepack_launches, their launches on phase 21's packed decode of
 the phase-4 file, and K2's and K3's wirepack_uic_launches on its packed
 uic-train decode; every entry has runner_launches, its launches in
 phase 22's runner, curve_launches, per sp and rank of its sp curve, and
-selfcheck_launches, in its live_soak --selfcheck.
+selfcheck_launches, in its live_soak --selfcheck.  K4's entry
+(tx_synth) has its launches on the batched loopback rows (launches,
+loopback_launches), on phase 13's other rows (rows_launches, and
+frames_launches of its frames entry), the fleet's, the cards', the
+runner's (runner_frames_launches beside), and its numbers at the
+headline buffer; phases 18, 20 and 22 require K4 launched and no plain
+synthesis call, and hold its last launch against its plain route.
 """
 
 from __future__ import annotations
@@ -847,25 +863,37 @@ KERNEL_COUNTS = ("fused_score", "mega_rx", "correlate", "correlate_batch")
 
 def reset_counts():
     """Set every kernel's launch count and every plain version's call
-    count to 0 (-> the classes that hold them)."""
+    count to 0 (-> the classes and functions that hold them)."""
     from minimodem_tpu_torch.ops.correlate import Correlator, correlate_plain
     from minimodem_tpu_torch.ops.fused_score import (
         FusedScorer, score_planes_plain)
     from minimodem_tpu_torch.ops.mega_rx import MegaRx, mega_rx_plain
+    from minimodem_tpu_torch.ops.tx_device import (
+        TxSynth, device_synthesize, device_synthesize_frames)
 
     FusedScorer.launches = MegaRx.launches = 0
     Correlator.launches = Correlator.batch_launches = 0
+    TxSynth.launches = TxSynth.frames_launches = 0
     score_planes_plain.calls = mega_rx_plain.calls = 0
     correlate_plain.calls = 0
-    return FusedScorer, MegaRx, Correlator, (score_planes_plain,
-                                             mega_rx_plain, correlate_plain)
+    device_synthesize.calls = device_synthesize_frames.calls = 0
+    return FusedScorer, MegaRx, Correlator, TxSynth, (
+        score_planes_plain, mega_rx_plain, correlate_plain), (
+        device_synthesize, device_synthesize_frames)
 
 
 def read_counts(counts) -> dict:
-    fused, mega, corr, plains = counts
+    """The launches and plain calls since reset_counts; "plain" counts
+    every plain version's calls, the synthesis' ("plain_synth") among
+    them."""
+    fused, mega, corr, synth, plains, synth_plains = counts
+    plain_synth = sum(p.calls for p in synth_plains)
     return {"fused_score": fused.launches, "mega_rx": mega.launches,
             "correlate": corr.launches, "correlate_batch": corr.batch_launches,
-            "plain": sum(p.calls for p in plains)}
+            "tx_synth": synth.launches,
+            "tx_synth_frames": synth.frames_launches,
+            "plain": sum(p.calls for p in plains) + plain_synth,
+            "plain_synth": plain_synth}
 
 
 def write_wav16(path: str, samples, rate: int) -> None:
@@ -1700,6 +1728,122 @@ def device_tx_check(dev) -> list:
     return rows
 
 
+K4_FRAME_MODES = ("rtty", "tdd", "1200 --stopbits 1.5")
+
+
+def k4_check(dev, head) -> dict:
+    """K4 (csrc/tx_synth.cu, TxSynth) against its plain route
+    (synth_bits_plain / synth_frames_plain) on the same inputs on the
+    card, each buffer filled with NaN first so that every sample must be
+    written: flat mode bit for bit at B = 4 x 4096 bits, at one 64.3 s
+    stream and at the whole headline buffer (the loopback's build_loop on
+    the B = 128 headline schedules, zero tail and halo included); frames
+    mode (rtty, tdd, Bell-202 with 1.5 stop bits, n_frames F_pad, partial
+    and 0) within turns_atol; and each against the plain route on the CPU
+    with its count of differing samples.  Then K4 timed at the headline
+    buffer: per call (CUDA events), its kernels alone (torch.profiler),
+    the plain route, and the bound.  -> {"rows", "head"}."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.ops.device_rx import DeviceLoopback, _sched_pad
+    from minimodem_tpu_torch.ops.tx_device import (
+        TxSynth, frame_synth_params, frames_len, synth_bits_plain,
+        synth_frames_plain)
+
+    rng = np.random.default_rng(SEED + 4)
+    rows = []
+
+    def row(name, got, ref, atol):
+        diff = (got.double() - ref.to(got.device).double()).abs()
+        r = {"name": name, "max_abs_err": float(diff.max()),
+             "differ": int(torch.count_nonzero(diff)), "n": diff.numel(),
+             "words": int(torch.count_nonzero(
+                 got.view(torch.int32) != ref.to(got.device).view(
+                     torch.int32))),
+             "atol": atol}
+        del diff
+        rows.append(r)
+        if r["max_abs_err"] > atol or (atol == 0.0 and r["words"]):
+            fail(f"K4 {name}: max_abs_err {r['max_abs_err']}, "
+                 f"{r['words']} bit-different words (tolerance {atol})")
+
+    def nan_buffer(b, width):
+        return torch.full((b, width), float("nan"), device=dev)
+
+    cfg = FskModem("1200", device="cpu").cfg
+    synth = TxSynth(cfg)
+    for name, (b, n_bits) in (("B=4 x 4096 bits", (4, 4096)),
+                              ("one 64.3 s stream (77824 bits)", (1, 77824))):
+        packed = torch.from_numpy(np.packbits(
+            rng.integers(0, 2, (b, n_bits), dtype=np.uint8), axis=1,
+            bitorder="little"))
+        width = n_bits * cfg.bit_nsamples_tx + 7001
+        got = synth.bits(packed.to(dev), width, out=nan_buffer(b, width))
+        row(f"flat {name} [{b}, {width}] vs plain on the card", got,
+            synth_bits_plain(packed.to(dev), cfg, width), 0.0)
+        row(f"flat {name} vs plain on the CPU", got,
+            synth_bits_plain(packed, cfg, width), 2.0 ** -23)
+    for mode in K4_FRAME_MODES:
+        fcfg = FskModem(mode.split()[0], device="cpu").cfg
+        if "stopbits" in mode:
+            fcfg.nstopbits = np.float32(1.5)
+            fcfg.finalize()
+        n_pad = 512
+        bits = torch.from_numpy(rng.integers(
+            0, 2, (3, n_pad, fcfg.n_data_bits), dtype=np.uint8))
+        nf = torch.tensor([n_pad, 300, 0], dtype=torch.int32)
+        width = frames_len(fcfg, n_pad, (2, 2)) + 5003
+        atol = turns_atol(max(frame_synth_params(fcfg)["seg_len"]), fcfg)
+        got = TxSynth(fcfg).frames(bits.to(dev), nf.to(dev), (2, 2), width,
+                                   out=nan_buffer(3, width))
+        row(f"frames {mode} [3, {n_pad}, {fcfg.n_data_bits}] (n_frames "
+            f"{nf.tolist()}) vs plain on the card", got,
+            synth_frames_plain(bits.to(dev), nf.to(dev), fcfg, (2, 2),
+                               width), atol)
+        row(f"frames {mode} vs plain on the CPU", got,
+            synth_frames_plain(bits, nf, fcfg, (2, 2), width), atol)
+        del got
+    # the headline buffer, as the loopback's build_loop makes it
+    lb = DeviceLoopback(cfg, device=dev)
+    b_pad = _sched_pad(max(len(s) for s in head))
+    bits = np.zeros((len(head), b_pad), np.uint8)
+    for i, sch in enumerate(head):
+        bits[i, :len(sch)] = sch
+    packed = torch.from_numpy(np.packbits(bits, axis=1,
+                                          bitorder="little")).to(dev)
+    loop = lb.build_loop(b_pad)
+    width = loop.t_total + lb.halo
+    got = synth.bits(packed, width, out=nan_buffer(len(head), width))
+    row(f"flat, the headline buffer [{len(head)}, {width}] vs plain on the "
+        f"card (zero tail from sample {b_pad * lb.bit_ns})", got,
+        loop.synthesize_plain(packed), 0.0)
+    del got
+    torch.cuda.empty_cache()
+    n_samples = len(head) * b_pad * lb.bit_ns
+    # K4's two kernels alone: torch.profiler (a window that missed some
+    # of them profiled again), and CUDA events behind a sleeping kernel
+    for tries in range(1, PROFILE_TRIES + 1):
+        kernel_ms, kernels = device_ms_per_call(
+            lambda: loop.synthesize(packed), 5)
+        if kernels == 2:
+            break
+    else:
+        kernel_ms = None
+    res = {"shape": f"{list(packed.shape)} -> [{len(head)}, {width}]",
+           "ms": cuda_ms(lambda: loop.synthesize(packed), 5),
+           "kernel_ms": kernel_ms, "profile_tries": tries,
+           "queued_ms": queued_ms(lambda: loop.synthesize(packed), 20),
+           "plain_ms": cuda_ms(lambda: loop.synthesize_plain(packed), 1),
+           "bytes": packed.numel() + 4 * len(head) * width,
+           # float32 operations a sample: the FMA (2), floor, subtract
+           # and two multiplies; the float64 sine beside them
+           "flop": 6 * n_samples, "sines": n_samples}
+    res["bound"] = bound(res["bytes"], res["flop"])
+    torch.cuda.empty_cache()
+    return {"rows": rows, "head": res}
+
+
 def events_close(got, ref) -> bool:
     """Event types, integer lanes and bytes equal; NOCARRIER confidence
     and amplitude totals within RTOL / ATOL."""
@@ -1853,15 +1997,26 @@ def loopback_kernels(lb, scheds, dev) -> dict:
 
 
 STAGES = (("K1", "fused_score_kernel"), ("K2", "mega_rx_kernel"),
-          ("upload", "Memcpy HtoD"), ("collect", "Memcpy DtoH"))
+          ("K4 synthesis", "tx_synth_"), ("upload", "Memcpy HtoD"),
+          ("collect", "Memcpy DtoH"))
+
+
+# profiled windows tried before a stage split or a kernel's time alone is
+# given up: on the card torch.profiler now and then drops the device
+# records of a whole window, or some of them (seen on an H100 late in
+# this script's run)
+PROFILE_TRIES = 5
 
 
 def stage_split(lb, scheds) -> dict:
     """One warm synchronous batch under torch.profiler: device time by
-    stage (K1, K2, the bit upload, the result copies; every other device
-    kernel is the synthesis, with the audio buffer's zero fill), the
+    stage (K1, K2, K4's kernels, the bit upload, the result copies; every
+    other device kernel or copy is "other": the carry's zero fills), the
     device busy and idle share of the call's wall, and how long the host
-    took to dispatch the batch (dispatch returns without waiting)."""
+    took to dispatch the batch (dispatch returns without waiting).  A
+    window whose records miss any of the batch's K1, K2 and K4 kernels
+    (by the launch counts) is profiled again, up to PROFILE_TRIES times;
+    "tries" says how many it took."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1872,28 +2027,43 @@ def stage_split(lb, scheds) -> dict:
     t_disp_plain = time.perf_counter() - t0
     lb.collect_events_batch(h)
     wall_plain = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        h = lb.dispatch_events_batch(scheds)
-        t_disp = time.perf_counter() - t0
-        lb.collect_events_batch(h)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    split = {name: 0.0 for name, _ in STAGES}
-    split["synthesis"] = 0.0
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = getattr(e, "self_device_time_total", 0) / 1e3
-        if ms <= 0:
-            continue
-        name = next((n for n, k in STAGES if k in e.key), "synthesis")
-        split[name] += ms
+    for tries in range(1, PROFILE_TRIES + 1):
+        counts = reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            h = lb.dispatch_events_batch(scheds)
+            t_disp = time.perf_counter() - t0
+            lb.collect_events_batch(h)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        lc = read_counts(counts)
+        # K4 launches two kernels a call (the prefix, the samples)
+        want = {"K1": lc["fused_score"], "K2": lc["mega_rx"],
+                "K4 synthesis": 2 * lc["tx_synth"]}
+        split = {name: 0.0 for name, _ in STAGES}
+        split["other"] = 0.0
+        got = dict.fromkeys(want, 0)
+        for e in prof.key_averages():
+            if (getattr(e, "device_type", None)
+                    != torch.autograd.DeviceType.CUDA):
+                continue
+            ms = getattr(e, "self_device_time_total", 0) / 1e3
+            if ms <= 0:
+                continue
+            name = next((n for n, k in STAGES if k in e.key), "other")
+            split[name] += ms
+            if name in got:
+                got[name] += e.count
+        if got == want:
+            break
+    else:
+        fail(f"torch.profiler missed kernels of the stage split in "
+             f"{PROFILE_TRIES} windows: {got} of {want}")
     busy = sum(split.values())
     return {"split": split, "busy_ms": busy, "wall_ms": wall * 1e3,
             "dispatch_ms": t_disp * 1e3, "wall_plain_ms": wall_plain * 1e3,
-            "dispatch_plain_ms": t_disp_plain * 1e3}
+            "dispatch_plain_ms": t_disp_plain * 1e3, "tries": tries}
 
 
 # ======================================================================
@@ -1935,40 +2105,44 @@ def same_events(a, b) -> bool:
 @contextlib.contextmanager
 def last_inputs():
     """While the block runs, record the arguments of each kernel's last
-    launch on the card, by wrapper (K1, K2, and K3 one-row / rows), so
-    that each kernel can be held against its plain version at the shapes
-    the path gave it once the path's counts are read (hold_last).
+    launch on the card, by wrapper (K1, K2, K3 one-row / rows, and K4's
+    flat and frames entries), so that each kernel can be held against its
+    plain version at the shapes the path gave it once the path's counts
+    are read (hold_last).
     -> {kernel name: (wrapper, its bound arguments)}."""
     import inspect
 
     from minimodem_tpu_torch.ops.correlate import Correlator
     from minimodem_tpu_torch.ops.fused_score import FusedScorer
     from minimodem_tpu_torch.ops.mega_rx import MegaRx
+    from minimodem_tpu_torch.ops.tx_device import TxSynth
 
     seen, olds = {}, {}
 
-    def wrap(cls, name_of):
-        old = olds[cls] = cls.__call__
+    def wrap(cls, name_of, method="__call__"):
+        old = olds[cls, method] = getattr(cls, method)
         sig = inspect.signature(old)
 
         def call(self, x, *a, **k):
             if x.device.type == "cuda":
                 args = sig.bind(self, x, *a, **k).arguments
                 seen[name_of(x)] = (self, {n: v for n, v in args.items()
-                                           if n != "self"})
+                                           if n not in ("self", "out")})
             return old(self, x, *a, **k)
 
-        cls.__call__ = call
+        setattr(cls, method, call)
 
     wrap(FusedScorer, lambda x: "fused_score")
     wrap(MegaRx, lambda x: "mega_rx")
     wrap(Correlator, lambda x: ("correlate" if x.shape[0] == 1
                                 else "correlate_batch"))
+    wrap(TxSynth, lambda x: "tx_synth", "bits")
+    wrap(TxSynth, lambda x: "tx_synth_frames", "frames")
     try:
         yield seen
     finally:
-        for cls, old in olds.items():
-            cls.__call__ = old
+        for (cls, method), old in olds.items():
+            setattr(cls, method, old)
 
 
 def hold_last(seen) -> dict:
@@ -1976,8 +2150,9 @@ def hold_last(seen) -> dict:
     inputs and held against its plain version on the same inputs on the
     card: K1 and K3 bit for bit (bit-different words; K3's max_abs_err),
     K2's events, bytes and carry identical (k2_compare, the plain version
-    on a CPU copy).  Call it after the path's counts are read: these
-    launches are not the path's.  -> {name: {"shape", "ok", ...}}."""
+    on a CPU copy), K4 as hold_tx_synth says.  Call it after the path's
+    counts are read: these launches are not the path's.
+    -> {name: {"shape", "ok", ...}}."""
     import numpy as np
     import torch
     from minimodem_tpu_torch.ops.correlate import correlate_plain
@@ -1985,6 +2160,9 @@ def hold_last(seen) -> dict:
 
     out = {}
     for name, (w, a) in sorted(seen.items()):
+        if name.startswith("tx_synth"):
+            out[name] = hold_tx_synth(name, w, a)
+            continue
         if name == "mega_rx":
             planes = a["planes"]
             same = k2_compare(w, planes, a["totals"], a["thr"], a["carry_i"],
@@ -2007,6 +2185,37 @@ def hold_last(seen) -> dict:
         del k, p
     torch.cuda.empty_cache()
     return out
+
+
+def hold_tx_synth(name: str, w, a: dict) -> dict:
+    """K4 launched again on a path's recorded inputs against its plain
+    route on the same inputs on the card: flat mode bit for bit (every
+    word of the buffer, zero tail and halo included), frames mode within
+    turns_atol (with the count of differing words)."""
+    import torch
+    from minimodem_tpu_torch.ops.tx_device import (
+        frame_synth_params, synth_bits_plain, synth_frames_plain)
+
+    width = a["width"]
+    if name == "tx_synth":
+        x = a["packed"]
+        k = w.bits(x, width)
+        p = synth_bits_plain(x, w.cfg, width, w.amp)
+        atol = 0.0
+    else:
+        x = a["frame_bits"]
+        k = w.frames(x, a["n_frames"], a["lead_trail"], width)
+        p = synth_frames_plain(x, a["n_frames"], w.cfg, a["lead_trail"],
+                               width, w.amp)
+        atol = turns_atol(max(frame_synth_params(w.cfg)["seg_len"]), w.cfg)
+    words = int(torch.count_nonzero(k.view(torch.int32)
+                                    != p.view(torch.int32)))
+    err = float((k.double() - p.double()).abs().max())
+    del k, p
+    torch.cuda.empty_cache()
+    return {"shape": f"{list(x.shape)} -> [{x.shape[0]}, {width}]",
+            "words": words, "max_abs_err": err,
+            "ok": words == 0 if atol == 0.0 else err <= atol}
 
 
 def held_line(held: dict) -> str:
@@ -2067,8 +2276,7 @@ def fleet_phase(cfg, audio, dev) -> dict:
             steps[b] = sharded_decode_step(cfg, mesh, x16[:b], STEP_LEN)
             step_s[b] = time.perf_counter() - t0
     launches = read_counts(counts)
-    if (min(launches[k] for k in ("fused_score", "mega_rx", "correlate",
-                                  "correlate_batch")) < 1
+    if (min(launches[k] for k in (*KERNEL_COUNTS, "tx_synth")) < 1
             or launches["plain"]):
         fail(f"fleet launches {launches}")
     for name, r in rows.items():
@@ -2079,7 +2287,7 @@ def fleet_phase(cfg, audio, dev) -> dict:
     # streams) against its plain version on the same inputs
     held = hold_last(seen)
     del seen
-    if set(held) != set(KERNEL_COUNTS) or not all(
+    if set(held) != {*KERNEL_COUNTS, "tx_synth"} or not all(
             r["ok"] for r in held.values()):
         fail(f"fleet kernels against their plain versions: {held}")
 
@@ -2341,8 +2549,8 @@ def cards_phase(n: int, card: str, dev) -> dict:
               f"(ShardedLoopback dp = {n} on {len(scheds)} streams, "
               f"ShardedReceiver {res['mesh_sp']} on {len(totals)} x "
               f"{DECOMP_BYTES} bytes) {ok}; launches {lc}")
-        if not ok or min(lc["fused_score"], lc["mega_rx"]) < 1 \
-                or lc["plain"]:
+        if not ok or min(lc["fused_score"], lc["mega_rx"],
+                         lc["tx_synth"]) < 1 or lc["plain"]:
             fail(f"rank {r} of the {n}-card fleet")
         for name, row in res["rows"].items():
             extra = {k: v for k, v in row.items() if k not in (
@@ -2718,7 +2926,9 @@ def entry_points_phase(card: str) -> dict:
     counts, held = child["launches"], child["held"]
     if key_tree(line) != RUNNER_KEYS or line["decode_exact"] is not True:
         fail(f"the runner's JSON line: {lines[-1]}")
-    if not held_ok(counts, held):
+    if (not held_ok(counts, held)
+            or min(counts["tx_synth"], counts["tx_synth_frames"]) < 1
+            or not {"tx_synth", "tx_synth_frames"} <= set(held)):
         fail(f"the runner's launches: {counts}; held: {held}")
     for s in lines[:-1]:
         phase(f"runner: {s}")
@@ -2727,7 +2937,9 @@ def entry_points_phase(card: str) -> dict:
           f"the rows' set-up included); launches with the counts set to 0 "
           f"just before its main: K1 {counts['fused_score']}, K2 "
           f"{counts['mega_rx']}, K3 one-row {counts['correlate']}, K3 rows "
-          f"{counts['correlate_batch']}, plain calls {counts['plain']}; "
+          f"{counts['correlate_batch']}, K4 flat {counts['tx_synth']}, K4 "
+          f"frames {counts['tx_synth_frames']}, plain calls "
+          f"{counts['plain']} (synthesis {counts['plain_synth']}); "
           f"its last launches: {held_line(held)} ({card})")
 
     # the script's main as a user calls it, its worlds' ranks each
@@ -3102,6 +3314,22 @@ def main() -> int:
         phase(f"device TX {r['name']} (cuda vs cpu): max_abs_err "
               f"{r['max_abs_err']} (tolerance {r['atol']}), {r['differ']} of "
               f"{r['n']} samples differ")
+    head = headline_sets(cfg, HEAD_BATCH, 1, HEAD_SECONDS)[0][1]
+    k4 = k4_check(dev, head)
+    for r in k4["rows"]:
+        phase(f"K4 {r['name']}: max_abs_err {r['max_abs_err']} (tolerance "
+              f"{r['atol']}), {r['differ']} of {r['n']} samples differ "
+              f"({r['words']} bit-different words)")
+    k4h = k4["head"]
+    phase(f"time K4 at the headline buffer {k4h['shape']}: "
+          f"{fmt_ms(k4h['kernel_ms'])} alone (its 2 kernels, torch.profiler, "
+          f"{k4h['profile_tries']} window(s)), {k4h['queued_ms']:.4f} ms "
+          f"queued behind a sleep (CUDA events), {k4h['ms']:.4f} ms per call, "
+          f"plain route {k4h['plain_ms']:.3f} ms, bound "
+          f"{k4h['bound'][0]:.4f} ms ({k4h['bound'][1]}: "
+          f"{k4h['bytes'] / 1e9:.3f} GB, {k4h['flop'] / 1e9:.2f} GFLOP "
+          f"float32) beside {k4h['sines'] / 1e6:.1f} M float64 sines "
+          f"({card})")
 
     # ---- 12. the loopback on the card against device="cpu" ----
     for r in loopback_cuda_vs_cpu(dev):
@@ -3113,24 +3341,23 @@ def main() -> int:
     from minimodem_tpu_torch import bench
     from minimodem_tpu_torch.ops.device_rx import DeviceLoopback
 
-    head = headline_sets(cfg, HEAD_BATCH, 1, HEAD_SECONDS)[0][1]
     lb = DeviceLoopback(cfg, device=dev)
     lk = loopback_kernels(lb, head, dev)
     phase(f"K1 at the loopback's shape {lk['shape_k1']}: bit-different "
           f"words {lk['k1_words']}; K2 at {lk['shape_k2']}: identical "
           f"events/bytes/carry {lk['k2_same']}, frame searches per stream "
           f"max {int(lk['k2_searches'].max())}")
-    FusedScorer.launches = MegaRx.launches = 0
-    score_planes_plain.calls = mega_rx_plain.calls = 0
+    counts = reset_counts()
     rows = {"batched": bench.batched_loopback_throughput(
                 "1200", HEAD_SECONDS, HEAD_BATCH, device=dev),
             "batched, pipeline 8": bench.batched_loopback_throughput(
                 "1200", HEAD_SECONDS, HEAD_BATCH, pipeline=8, device=dev)}
-    lb_launches = {"fused_score": FusedScorer.launches,
-                   "mega_rx": MegaRx.launches}
-    lb_plain = score_planes_plain.calls + mega_rx_plain.calls
-    if min(lb_launches.values()) < 1 or lb_plain:
+    lb_launches = read_counts(counts)
+    lb_plain = lb_launches["plain"]
+    if min(lb_launches[k] for k in ("fused_score", "mega_rx",
+                                    "tx_synth")) < 1 or lb_plain:
         fail(f"loopback launches {lb_launches}, plain calls {lb_plain}")
+    counts = reset_counts()
     rows["rtty"] = bench.mode_loopback_throughput("rtty", device=dev)
     rows["same"] = bench.mode_loopback_throughput("same", device=dev)
     rows["callerid"] = bench.callerid_throughput(device=dev)
@@ -3138,6 +3365,10 @@ def main() -> int:
     rows["decode ulaw"] = bench.decode_throughput(encoding="ulaw",
                                                   device=dev)
     rows["loopback one stream"] = bench.loopback_throughput(device=dev)
+    rows_launches = read_counts(counts)
+    if (min(rows_launches[k] for k in ("tx_synth", "tx_synth_frames")) < 1
+            or rows_launches["plain"]):
+        fail(f"the other bench rows' launches {rows_launches}")
     for name, r in rows.items():
         extra = {k: v for k, v in r.items() if k not in (
             "mode", "audio_seconds", "wall_seconds", "real_time_factor",
@@ -3149,7 +3380,8 @@ def main() -> int:
         if not r["decode_exact"]:
             fail(f"bench {name} does not decode exact")
     phase(f"loopback launches in the two batched rows (counts set to 0 "
-          f"before them): {lb_launches}, plain calls {lb_plain}")
+          f"before them): {lb_launches}, plain calls {lb_plain}; in the "
+          f"other rows (set to 0 again): {rows_launches}")
 
     # ---- 14. stage split and peak memory of one warm B = 128 batch ----
     ss = stage_split(lb, head)
@@ -3160,7 +3392,8 @@ def main() -> int:
     phase(f"stage split of one warm B = {HEAD_BATCH} x {HEAD_SECONDS} s batch "
           f"(torch.profiler): {parts}; device busy {ss['busy_ms']:.3f} ms of "
           f"{ss['wall_ms']:.2f} ms wall (idle "
-          f"{100 - 100 * ss['busy_ms'] / ss['wall_ms']:.1f}%); the host's "
+          f"{100 - 100 * ss['busy_ms'] / ss['wall_ms']:.1f}%; "
+          f"{ss['tries']} profiled window(s)); the host's "
           f"dispatch returned after {ss['dispatch_ms']:.2f} ms; unprofiled: "
           f"wall {ss['wall_plain_ms']:.2f} ms, dispatch returned after "
           f"{ss['dispatch_plain_ms']:.2f} ms ({card})")
@@ -3188,8 +3421,9 @@ def main() -> int:
           f"{fleet['init_s']:.2f} s, set-up): launches with the counts set "
           f"to 0 before the two fleet rows and sharded_decode_step: K1 "
           f"{fl['fused_score']}, K2 {fl['mega_rx']}, K3 one-row "
-          f"{fl['correlate']}, K3 rows {fl['correlate_batch']}, plain calls "
-          f"{fl['plain']}; sharded_decode_step [{STEP_BATCH}, {STEP_LEN}] "
+          f"{fl['correlate']}, K3 rows {fl['correlate_batch']}, K4 "
+          f"{fl['tx_synth']}, plain calls {fl['plain']} (synthesis "
+          f"{fl['plain_synth']}); sharded_decode_step [{STEP_BATCH}, {STEP_LEN}] "
           f"and [1, {STEP_LEN}] (walls {fleet['step_s'][STEP_BATCH]:.3f} "
           f"and {fleet['step_s'][1]:.3f} s, the first call's scorer "
           f"set-up included): {fleet['step_words']} words differ from the "
@@ -3352,6 +3586,29 @@ def main() -> int:
          "geometry_batch_launches": {
              r["name"]: r["batch_launches"]["correlate_batch"]
              for r in geo_rows if r["route"] == "K3"}},
+        {"name": "tx_synth", "route": "cuda", "source": src + "tx_synth.cu",
+         "replaces": "minimodem_tpu/ops/tx_device.py:179-288 traced into "
+                     "minimodem_tpu/ops/device_rx.py:1108-1186 (an XLA "
+                     "fusion; no pallas_call)",
+         "launches": lb_launches["tx_synth"],
+         "max_abs_err": max(r["max_abs_err"] for r in k4["rows"]
+                            if r["atol"] == 0.0),
+         "frames_max_abs_err": max(r["max_abs_err"] for r in k4["rows"]
+                                   if r["name"].startswith("frames")),
+         "differ_vs_cpu": {r["name"]: r["differ"] for r in k4["rows"]
+                           if r["name"].endswith("on the CPU")},
+         "ms": k4h["ms"], "kernel_ms": k4h["kernel_ms"],
+         "queued_ms": k4h["queued_ms"], "plain_ms": k4h["plain_ms"], "bound_ms": k4h["bound"][0],
+         "bound_by": k4h["bound"][1], "library_ms": None,
+         "fp64_sines": k4h["sines"],
+         "loopback_launches": lb_launches["tx_synth"],
+         "loopback_kernel_ms": ss["split"]["K4 synthesis"],
+         "rows_launches": rows_launches["tx_synth"],
+         "frames_launches": rows_launches["tx_synth_frames"],
+         "fleet_launches": fl["tx_synth"],
+         "cards_launches": [r["tx_synth"] for r in cards["launches"]],
+         "runner_launches": rl["tx_synth"],
+         "runner_frames_launches": rl["tx_synth_frames"]},
     ]}), flush=True)
     phase(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -5,6 +5,9 @@ plain C interface:
     K2  mega_rx.cu      mm_mega_rx      the state machine (ops/mega_rx.py)
     K3  correlate.cu    mm_correlate    the stage-1 correlation
                                         (ops/correlate.py)
+    K4  tx_synth.cu     mm_tx_synth_bits, mm_tx_synth_frames
+                                        the loopback's synthesis
+                                        (ops/tx_device.py TxSynth)
 
 At first use each source is compiled by its own nvcc, all started
 together,
@@ -19,7 +22,8 @@ register-blocked correlation of K1 and K3) and the flags, and loaded with
 ctypes.  There is no --use_fast_math: the scorer
 relies on IEEE x/0 = inf, 0/0 = nan and correctly rounded sqrtf and
 division, and -fmad=false keeps every multiply-add two rounded ops, as in
-the plain PyTorch versions.  Every C entry returns cudaGetLastError();
+the plain PyTorch versions (K4 spells each rounding out as an _rn
+intrinsic besides).  Every C entry returns cudaGetLastError();
 check() raises on anything but 0.  nvcc is found through CUDA_HOME,
 /usr/local/cuda or PATH.
 """
@@ -46,13 +50,17 @@ _lock = threading.Lock()
 _lib = None
 build_seconds = None     # wall time of the last nvcc build, None if cached
 
-_P, _I, _LL, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_uint, ctypes.c_float)
+_P, _I, _LL, _U, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_uint, ctypes.c_float, ctypes.c_double)
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "mm_fused_score": [_P, _LL, _I, _I, _P, _I, _P, _I, _I, _F, _U, _U, _U,
                        _U, _I, _I, _I, _P, _P],
     "mm_mega_rx": [_P] * 12,
     "mm_correlate": [_P, _LL, _I, _I, _P, _I, _I, _I, _P, _P],
+    "mm_tx_synth_bits": [_P, _I, _I, _I, _D, _D, _F, _F, _F, _P, _P, _I, _P],
+    "mm_tx_synth_frames": [_P, _P, _I, _I, _I, _I, _IP, _IP, _I, _I, _D, _D,
+                           _F, _F, _I, _I, _D, _F, _P, _P, _P, _I, _P],
 }
 
 

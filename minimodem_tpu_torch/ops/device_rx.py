@@ -789,9 +789,6 @@ def _sched_pad(n_bits: int) -> int:
 # logged more makes collect fetch the whole log (events are carrier
 # transitions, a clean stream logs two)
 EV_CAP = 32
-# samples synthesized per step of the loopback: bounds the float64
-# temporaries of the synthesis to a few hundred MB at any batch size
-SYNTH_STEP = 1 << 25
 
 
 class _HostBuffers:
@@ -871,18 +868,19 @@ class DeviceLoopback:
         frames mode [B, b_pad, n_data_bits] uint8 per-frame data-bit rows
         with n_frames [B] the count of real frames.  Its two halves are
         run.synthesize(bits, n_frames=None) -> audio [B, t_total + halo]
-        float32 and run.t_total, the scored length."""
+        float32 (K4 on the card, the plain route on the CPU;
+        run.synthesize_plain takes the plain route on any device) and
+        run.t_total, the scored length."""
         from .mega_rx import mega_runner
-        from .tx_device import device_synthesize, device_synthesize_frames
+        from .tx_device import (TxSynth, frames_len, synth_bits_plain,
+                                synth_frames_plain)
 
         cache_key = (b_pad, frames_mode, tuple(lead_trail))
         if cache_key in self._fns:
             return self._fns[cache_key]
         cfg = self.cfg
         if frames_mode:
-            n_samples = (lead_trail[0] * self.bit_ns
-                         + b_pad * self.frame_len
-                         + lead_trail[1] * self.bit_ns)
+            n_samples = frames_len(cfg, b_pad, lead_trail)
         else:
             n_samples = b_pad * self.bit_ns
         t_total = _round_up_pow2(n_samples + cfg.nsamples_overscan + 1)
@@ -890,27 +888,22 @@ class DeviceLoopback:
                          self.compact)
         width = t_total + self.halo
         amp = self._amplitude
-        rows = max(1, SYNTH_STEP // n_samples)
+        k4 = TxSynth(cfg, amp)
+
+        def synthesize_plain(bits, n_frames=None):
+            if frames_mode:
+                return synth_frames_plain(bits, n_frames, cfg, lead_trail,
+                                          width, amp)
+            return synth_bits_plain(bits, cfg, width, amp)
 
         def synthesize(bits, n_frames=None):
-            dev, bsz = bits.device, bits.shape[0]
-            # the audio in a zeroed buffer: zero signal past each stream's
-            # synthesized schedule, as the JAX loop pads it
-            x = torch.zeros((bsz, width), dtype=torch.float32, device=dev)
-            shifts = torch.arange(8, dtype=torch.uint8, device=dev)
-            for r in range(0, bsz, rows):
-                part = bits[r:r + rows]
-                if frames_mode:
-                    s = device_synthesize_frames(
-                        part, n_frames[r:r + rows], cfg, lead_trail[0],
-                        lead_trail[1], amp)
-                else:
-                    unpacked = ((part[:, :, None] >> shifts) & 1).reshape(
-                        part.shape[0], b_pad)
-                    s = device_synthesize(unpacked, cfg, amp)
-                x[r:r + rows, :n_samples] = s
-                del s
-            return x
+            # zero signal past each stream's synthesized schedule, as the
+            # JAX loop pads it
+            if bits.device.type == "cpu":
+                return synthesize_plain(bits, n_frames)
+            if frames_mode:
+                return k4.frames(bits, n_frames, lead_trail, width)
+            return k4.bits(bits, width)
 
         def loop(bits, totals, thr, n_frames=None):
             x = synthesize(bits, n_frames)
@@ -920,6 +913,7 @@ class DeviceLoopback:
             return rx(x, totals, thr, ci, cf)[:4]
 
         loop.synthesize, loop.t_total = synthesize, t_total
+        loop.synthesize_plain = synthesize_plain
         self._fns[cache_key] = loop
         return loop
 

@@ -17,8 +17,13 @@ the same static segment template, per-frame base phases come from one
 float64 prefix sum and the sample expansion is a static gather.
 
 The host half (schedules and static constants) is a copy of the JAX
-module's numpy code.  The device half is plain PyTorch on the bit
-tensors' device, batched over streams:
+module's numpy code.  The device half has two routes.  On the card it is
+K4 (csrc/tx_synth.cu, the class TxSynth): one pass writes the loopback's
+whole audio buffer, bit for bit what the plain version makes there in
+flat mode.  The plain version, device_synthesize and
+device_synthesize_frames (with synth_bits_plain / synth_frames_plain,
+the loopback's buffer around them), is PyTorch batched over streams and
+runs for CPU tensors:
 
 - the per-sample phase `turns = phase + i * inv_wave` is rounded once, as
   one fused multiply-add (the JAX package's XLA contracts it on the CPU),
@@ -257,7 +262,11 @@ def device_synthesize(bits: torch.Tensor, cfg: ModemConfig,
     i = torch.arange(bit_ns, dtype=torch.float32, device=dev)
     turns = fma_f32_exact(i, inv_wave[:, :, None], phase32[:, :, None])
     samples = _sin_2pi_frac(turns) * float(np.float32(amplitude))
+    device_synthesize.calls += 1
     return samples.reshape(bits.shape[0], -1)
+
+
+device_synthesize.calls = 0
 
 
 def device_synthesize_frames(frame_bits: torch.Tensor, n_frames: torch.Tensor,
@@ -334,4 +343,181 @@ def device_synthesize_frames(frame_bits: torch.Tensor, n_frames: torch.Tensor,
     at = (leader_len + n_frames * frame_len)[:, None] + torch.arange(
         trailer_len, device=dev)
     out.scatter_(1, at, trail)
+    device_synthesize_frames.calls += 1
     return out * float(np.float32(amplitude))
+
+
+device_synthesize_frames.calls = 0
+
+
+# ======================================================================
+# the loopback's audio buffer: the plain route and K4
+# ======================================================================
+
+# samples the plain route synthesizes a step: bounds its float64
+# temporaries to a few hundred MB at any batch size
+SYNTH_STEP = 1 << 25
+
+
+def frames_len(cfg: ModemConfig, n_frames: int, lead_trail: tuple) -> int:
+    """Samples of a frame schedule of n_frames frames with lead_trail
+    (leader, trailer) bits around them."""
+    return ((lead_trail[0] + lead_trail[1]) * cfg.bit_nsamples_tx
+            + n_frames * frame_synth_params(cfg)["frame_len"])
+
+
+def synth_bits_plain(packed: torch.Tensor, cfg: ModemConfig, width: int,
+                     amplitude: float = 1.0) -> torch.Tensor:
+    """K4's plain version for flat schedules: packed [B, n_bytes] uint8
+    bit schedules (LSB-first, np.packbits bitorder="little") -> the audio
+    buffer [B, width] float32 on their device, device_synthesize's samples
+    in front and 0.0 after, SYNTH_STEP samples a step."""
+    dev, bsz, n_bits = packed.device, packed.shape[0], 8 * packed.shape[1]
+    n_samples = n_bits * cfg.bit_nsamples_tx
+    x = torch.zeros((bsz, width), dtype=torch.float32, device=dev)
+    rows = max(1, SYNTH_STEP // max(n_samples, 1))
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    for r in range(0, bsz, rows):
+        part = packed[r:r + rows]
+        bits = ((part[:, :, None] >> shifts) & 1).reshape(part.shape[0],
+                                                          n_bits)
+        x[r:r + rows, :n_samples] = device_synthesize(bits, cfg, amplitude)
+    return x
+
+
+def synth_frames_plain(frame_bits: torch.Tensor, n_frames: torch.Tensor,
+                       cfg: ModemConfig, lead_trail: tuple, width: int,
+                       amplitude: float = 1.0) -> torch.Tensor:
+    """K4's plain version for frame schedules: frame_bits [B, F, n_data]
+    uint8, n_frames [B] -> the audio buffer [B, width] float32,
+    device_synthesize_frames' samples in front and 0.0 after."""
+    bsz, n_pad = frame_bits.shape[:2]
+    n_samples = frames_len(cfg, n_pad, lead_trail)
+    x = torch.zeros((bsz, width), dtype=torch.float32,
+                    device=frame_bits.device)
+    rows = max(1, SYNTH_STEP // max(n_samples, 1))
+    for r in range(0, bsz, rows):
+        x[r:r + rows, :n_samples] = device_synthesize_frames(
+            frame_bits[r:r + rows], n_frames[r:r + rows], cfg, lead_trail[0],
+            lead_trail[1], amplitude)
+    return x
+
+
+class TxSynth:
+    """K4 (csrc/tx_synth.cu): the loopback's synthesis for one config and
+    amplitude, into the whole audio buffer [B, width] float32 (0.0 past
+    the schedule), on CUDA tensors only.  A tensor elsewhere raises: the
+    plain route (synth_bits_plain, synth_frames_plain) is the caller's to
+    take, for CPU tensors.  `launches` counts mm_tx_synth_bits calls,
+    `frames_launches` mm_tx_synth_frames calls."""
+
+    launches = 0
+    frames_launches = 0
+
+    def __init__(self, cfg: ModemConfig, amplitude: float = 1.0):
+        self.cfg = cfg
+        self.amp = float(np.float32(amplitude))
+
+    @staticmethod
+    def _out(dev, bsz: int, width: int, out):
+        if out is None:
+            return torch.empty((bsz, width), dtype=torch.float32, device=dev)
+        if (out.shape != (bsz, width) or out.dtype != torch.float32
+                or out.device != dev or not out.is_contiguous()):
+            raise ValueError(f"out must be a contiguous [{bsz}, {width}] "
+                             f"float32 tensor on {dev}")
+        return out
+
+    @staticmethod
+    def _check(*ts) -> torch.device:
+        dev = ts[0].device
+        for t in ts:
+            if t.device.type != "cuda" or t.device != dev:
+                raise ValueError(
+                    f"TxSynth takes tensors on one CUDA device, got "
+                    f"{t.device}; synth_bits_plain / synth_frames_plain "
+                    f"are the CPU's route")
+        return dev
+
+    def bits(self, packed: torch.Tensor, width: int,
+             out: torch.Tensor = None) -> torch.Tensor:
+        """packed [B, n_bytes] uint8 flat bit schedules (LSB-first) ->
+        out [B, width] float32: device_synthesize's samples for the
+        n_bytes * 8 bits, then 0.0."""
+        from . import _kernels
+
+        dev = self._check(packed)
+        if packed.dim() != 2 or packed.dtype != torch.uint8:
+            raise ValueError(f"expected [B, n_bytes] uint8 packed bits, got "
+                             f"{tuple(packed.shape)} {packed.dtype}")
+        p = synth_params(self.cfg)
+        bsz, n_bytes = packed.shape
+        if not 8 * n_bytes * p["bit_ns"] <= width < 2 ** 31:
+            raise ValueError(f"width {width} does not hold {8 * n_bytes} "
+                             f"bits of {p['bit_ns']} samples (< 2^31)")
+        out = self._out(dev, bsz, width, out)
+        if bsz == 0 or n_bytes == 0:
+            return out.zero_()
+        packed = packed.contiguous()
+        prefix = torch.empty((bsz, n_bytes), dtype=torch.int32, device=dev)
+        err = _kernels.load().mm_tx_synth_bits(
+            packed.data_ptr(), bsz, n_bytes, p["bit_ns"],
+            float(p["inc_mark"]), float(p["inc_space"]),
+            float(np.float32(p["inv_wave_mark"])),
+            float(np.float32(p["inv_wave_space"])), self.amp,
+            prefix.data_ptr(), out.data_ptr(), width,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _kernels.check(err, "mm_tx_synth_bits")
+        TxSynth.launches += 1
+        return out
+
+    def frames(self, frame_bits: torch.Tensor, n_frames: torch.Tensor,
+               lead_trail: tuple, width: int,
+               out: torch.Tensor = None) -> torch.Tensor:
+        """frame_bits [B, F, n_data_bits] uint8, n_frames [B] -> out
+        [B, width] float32: device_synthesize_frames' samples (leader,
+        F frames, the trailer after each stream's real frames), then 0.0."""
+        import ctypes
+
+        from . import _kernels
+
+        dev = self._check(frame_bits, n_frames)
+        cfg = self.cfg
+        if (frame_bits.dim() != 3 or frame_bits.dtype != torch.uint8
+                or frame_bits.shape[2] != cfg.n_data_bits
+                or n_frames.shape != frame_bits.shape[:1]):
+            raise ValueError(
+                f"expected [B, F, {cfg.n_data_bits}] uint8 frame bits and "
+                f"[B] frame counts, got {tuple(frame_bits.shape)} "
+                f"{frame_bits.dtype}, {tuple(n_frames.shape)}")
+        bsz, n_pad = frame_bits.shape[:2]
+        if not frames_len(cfg, n_pad, lead_trail) <= width < 2 ** 31:
+            raise ValueError(f"width {width} does not hold {n_pad} frames "
+                             f"with {lead_trail} lead/trail bits (< 2^31)")
+        out = self._out(dev, bsz, width, out)
+        if bsz == 0 or n_pad == 0:
+            return out.zero_()
+        p = frame_synth_params(cfg)
+        n_seg = len(p["seg_len"])
+        iwm = float(np.float64(p["inv_wave_mark"]))
+        iws = float(np.float64(p["inv_wave_space"]))
+        iw_lead = iwm if p["leader_tone"] == 1 else iws
+        lead_len = lead_trail[0] * p["bit_ns"]
+        seg = torch.empty((bsz, n_pad, n_seg, 2), dtype=torch.float32,
+                          device=dev)
+        ph0 = torch.empty((bsz,), dtype=torch.float32, device=dev)
+        frame_bits = frame_bits.contiguous()
+        n_frames = n_frames.to(torch.int32).contiguous()
+        ints = ctypes.c_int * n_seg
+        err = _kernels.load().mm_tx_synth_frames(
+            frame_bits.data_ptr(), n_frames.data_ptr(), bsz, n_pad,
+            cfg.n_data_bits, n_seg, ints(*map(int, p["seg_len"])),
+            ints(*map(int, p["seg_kind"])), int(p["start_tone"]),
+            int(p["stop_tone"]), iwm, iws, float(np.float32(iw_lead)),
+            float(np.float32(iwm)), lead_len, lead_trail[1] * p["bit_ns"],
+            float(np.float64(lead_len) * np.float64(iw_lead)), self.amp,
+            seg.data_ptr(), ph0.data_ptr(), out.data_ptr(), width,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _kernels.check(err, "mm_tx_synth_frames")
+        TxSynth.frames_launches += 1
+        return out

@@ -7,7 +7,10 @@ only torch and the port (no jax), so it runs on the GPU machine as is:
 
 Tolerances: K1's planes and K3's correlations are compared bit for bit
 (the kernel and the plain version do the same IEEE-rounded ops in the
-same order); K2's events, bytes and carry are compared exactly.
+same order); K2's events, bytes and carry are compared exactly; K4's
+flat-schedule audio bit for bit, its frame-schedule audio within
+_turns_atol (a float64 prefix summed in the CPU's order, where the plain
+version on the card takes CUDA's parallel cumsum).
 """
 
 import io
@@ -816,6 +819,126 @@ def test_device_synthesize_frames_cuda_equals_cpu(cuda, mode):
     # which moves the rounding of every sample of the segment
     _samples_close(got, ref, _turns_atol(
         max(frame_synth_params(m.cfg)["seg_len"]), m.cfg))
+
+
+def _frames_case(mode):
+    m = _modem(mode.split("-")[0])
+    if mode == "1200-1.5":
+        m.cfg.nstopbits = np.float32(1.5)
+        m.cfg.finalize()
+    return m.cfg
+
+
+def _bit_words(t):
+    return t.contiguous().view(torch.int32).cpu().numpy()
+
+
+@pytest.mark.parametrize("batch", [1, 3, 129])
+def test_tx_synth_bits_equals_plain(cuda, batch):
+    """K4 in flat mode against its plain route on the card (unpack,
+    device_synthesize, the zero tail), bit for bit: integer phase counts,
+    one correctly rounded FMA and CUDA's float64 sine on both sides."""
+    from minimodem_tpu_torch.ops.tx_device import TxSynth, synth_bits_plain
+
+    cfg = _modem("1200").cfg
+    rng = np.random.default_rng(batch)
+    n_bits = 4096 + 512 * (batch % 3)
+    packed = torch.from_numpy(np.packbits(
+        rng.integers(0, 2, (batch, n_bits), dtype=np.uint8), axis=1,
+        bitorder="little")).to(cuda)
+    width = n_bits * cfg.bit_nsamples_tx + 5000
+    launches = TxSynth.launches
+    got = TxSynth(cfg, 0.8).bits(packed, width)
+    assert TxSynth.launches == launches + 1
+    np.testing.assert_array_equal(
+        _bit_words(got), _bit_words(synth_bits_plain(packed, cfg, width, 0.8)))
+
+
+def test_tx_synth_bits_writes_the_tail(cuda):
+    """Into a buffer filled with NaN first: every sample of the row
+    written, the tail past the schedule (the halo included) 0.0."""
+    from minimodem_tpu_torch.ops.tx_device import TxSynth, synth_bits_plain
+
+    cfg = _modem("1200").cfg
+    packed = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (2, 64), dtype=np.uint8)).to(cuda)
+    n_samples = 512 * cfg.bit_nsamples_tx
+    width = n_samples + 4096 * 3 + 17
+    out = torch.full((2, width), float("nan"), device=cuda)
+    TxSynth(cfg).bits(packed, width, out=out)
+    assert not torch.isnan(out).any()
+    assert torch.count_nonzero(out[:, n_samples:]) == 0
+    np.testing.assert_array_equal(
+        _bit_words(out), _bit_words(synth_bits_plain(packed, cfg, width)))
+
+
+@pytest.mark.parametrize("mode", ["rtty", "tdd", "1200-1.5"])
+def test_tx_synth_frames_within_turns_atol(cuda, mode):
+    """K4 in frames mode at n_frames = F_pad, partial and 0 (the trailer
+    at the end, over padded frames, and right after the leader), against
+    the plain route on the card and on the CPU, within the tolerance of a
+    float64 prefix summed in another order; every sample written (NaN
+    first), 0.0 after the trailer."""
+    from minimodem_tpu_torch.ops.tx_device import (
+        TxSynth, frame_synth_params, frames_len, synth_frames_plain)
+
+    cfg = _frames_case(mode)
+    rng = np.random.default_rng(7)
+    n_pad = 96
+    bits = torch.from_numpy(rng.integers(
+        0, 2, (3, n_pad, cfg.n_data_bits), dtype=np.uint8))
+    nf = torch.tensor([n_pad, 41, 0], dtype=torch.int32)
+    lt = (2, 2)
+    width = frames_len(cfg, n_pad, lt) + 3000
+    out = torch.full((3, width), float("nan"), device=cuda)
+    launches = TxSynth.frames_launches
+    got = TxSynth(cfg, 0.7).frames(bits.to(cuda), nf.to(cuda), lt, width,
+                                   out=out)
+    assert TxSynth.frames_launches == launches + 1
+    assert not torch.isnan(got).any()
+    atol = _turns_atol(max(frame_synth_params(cfg)["seg_len"]), cfg)
+    for dev in (cuda, "cpu"):
+        ref = synth_frames_plain(bits.to(dev), nf.to(dev), cfg, lt, width,
+                                 0.7)
+        _samples_close(got, ref.cpu().double(), atol)
+    assert torch.count_nonzero(got[:, frames_len(cfg, n_pad, lt):]) == 0
+
+
+def test_tx_synth_refuses_cpu_tensors(cuda):
+    from minimodem_tpu_torch.ops.tx_device import TxSynth
+
+    cfg = _modem("1200").cfg
+    packed = torch.zeros((1, 8), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA"):
+        TxSynth(cfg).bits(packed, 64 * cfg.bit_nsamples_tx)
+    with pytest.raises(ValueError, match="CUDA"):
+        TxSynth(cfg).frames(torch.zeros((1, 4, 8), dtype=torch.uint8),
+                            torch.zeros(1, dtype=torch.int32).to(cuda),
+                            (2, 2), 10 ** 4)
+
+
+def test_loopback_synthesizes_through_k4(cuda):
+    """DeviceLoopback on the card, flat and frames mode: K4 launched, the
+    plain synthesis never called."""
+    from minimodem_tpu_torch.codecs import Ascii8Codec
+    from minimodem_tpu_torch.ops.device_rx import DeviceLoopback
+    from minimodem_tpu_torch.ops.tx_device import (
+        TxSynth, device_synthesize, device_synthesize_frames,
+        tx_bit_schedule, tx_frame_schedule)
+
+    plain = device_synthesize.calls + device_synthesize_frames.calls
+    k4 = (TxSynth.launches, TxSynth.frames_launches)
+    cfg = _modem("1200").cfg
+    texts = _payloads(2, 60)
+    DeviceLoopback(cfg, device=cuda).run_events_batch(
+        [tx_bit_schedule(t, cfg, Ascii8Codec()) for t in texts])
+    cfg15 = _frames_case("1200-1.5")
+    rows = [tx_frame_schedule(t, cfg15, Ascii8Codec()) for t in texts]
+    DeviceLoopback(cfg15, device=cuda).run_events_frames_batch(
+        [r[0] for r in rows], rows[0][1:])
+    assert (TxSynth.launches, TxSynth.frames_launches) == (k4[0] + 1,
+                                                           k4[1] + 1)
+    assert device_synthesize.calls + device_synthesize_frames.calls == plain
 
 
 def _events_close(got, ref):
