@@ -50,11 +50,20 @@ one line each; any failure exits non-zero:
      numpy backend in S16 and FLOAT, the direct sine within one ulp);
      then K4, the loopback's synthesis (csrc/tx_synth.cu), against its
      plain route into buffers filled with NaN: flat schedules bit for bit
-     at B = 4 x 4096 bits, at one 64.3 s stream and at the whole headline
-     buffer [128, 3146168] (zero tail and halo included), frame schedules
-     (rtty, tdd, Bell-202 with 1.5 stop bits; n_frames F_pad, partial, 0)
-     within turns_atol, each also against the plain route on the CPU with
-     its count of differing samples; K4 timed at the headline buffer;
+     at 1200 B = 4 x 4096 bits, one 64.3 s stream, 300 and tdd (widths off
+     the 16-byte grid, tiles ending inside a bit) and at the whole
+     headline buffer [128, 3146168] (zero tail and halo included), frame
+     schedules (rtty, tdd, Bell-202 with 1.5 stop bits; n_frames F_pad,
+     partial, 0) within turns_atol of the plain route on the card, each
+     also against the plain route on the CPU with its count of differing
+     samples (frames: every word equal, or the run fails); K4's sine
+     against CUDA's float64 sin on every float32 fraction of a turn in
+     [0, 1), 1,065,353,216 inputs, 0 differing required; the census of
+     K4's four kernels (registers, and each sample loop's instructions a
+     sample by pipe from the library's SASS); K4 timed at the headline
+     buffer and its frames entry at the frame-schedule bench row's shape
+     (rtty, tdd, Bell-202 at 1.5 stop bits; B = 8 x 15 s), each alone,
+     queued and per call beside its bound and each pipe's floor;
  12. the on-device loopback against device="cpu", event for event:
      1200 and SAME (flat schedules) and Bell-202 with 1.5 stop bits
      (frame schedules), two streams each;
@@ -1729,6 +1738,168 @@ def device_tx_check(dev) -> list:
 
 
 K4_FRAME_MODES = ("rtty", "tdd", "1200 --stopbits 1.5")
+# K4's kernels, by the name each has in csrc/tx_synth.cu
+K4_KERNELS = ("tx_synth_prefix_kernel", "tx_synth_bits_kernel",
+              "tx_synth_frames_prep_kernel", "tx_synth_frames_kernel")
+# results a clock an SM of compute capability 9.0 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput): float32 add / multiply / FMA;
+# float64; integer, logic, compare, select and move; conversions, MUFU,
+# popc, frnd; and the issue slots (4 schedulers of one warp instruction)
+PIPE_RATES = {"fp32": 128, "fp64": 64, "alu": 64, "quarter": 16,
+              "issue": 128}
+_SASS_FP64 = {"DFMA", "DMUL", "DADD", "DSETP", "DMNMX", "DSET"}
+_SASS_QUARTER = {"F2F", "F2I", "I2F", "FRND", "MUFU", "POPC", "FLO", "BREV"}
+_SASS_FP32 = {"FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I"}
+_SASS_CONTROL = {"BRA", "BAR", "EXIT", "BSSY", "BSYNC", "CALL", "RET",
+                 "WARPSYNC", "NOP", "BPT", "YIELD", "JMP", "BREAK", "RPCMOV"}
+_STG_BYTES = {"128": 16, "64": 8, "U8": 1, "S8": 1, "U16": 2, "S16": 2}
+
+
+def sass_functions(sass: str) -> dict:
+    """cuobjdump -sass text -> {function name: [(address, opcode,
+    modifiers, branch target address or None)]}, one an instruction."""
+    import re
+
+    funcs, cur = {}, None
+    ins = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)\s*([^;]*);")
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = ins.search(line) if cur is not None else None
+        if m:
+            t = re.match(r"\s*(0x[0-9a-f]+)", m.group(4))
+            cur.append((int(m.group(1), 16), m.group(2), m.group(3),
+                        int(t.group(1), 16) if t and m.group(2) == "BRA"
+                        else None))
+    return funcs
+
+
+def sass_class(op: str) -> str:
+    if op in _SASS_FP64:
+        return "fp64"
+    if op in _SASS_QUARTER:
+        return "quarter"
+    if op in _SASS_FP32:
+        return "fp32"
+    if op == "STG":
+        return "stg"
+    if op.startswith(("LD", "ST", "ATOM", "RED", "UBLKCP", "SYNCS")):
+        return "mem"
+    if op in _SASS_CONTROL:
+        return "control"
+    if op.startswith("U") or op in ("S2UR", "R2UR"):
+        return "uniform"
+    return "alu"
+
+
+def sample_loop_census(code) -> dict:
+    """The per-sample census of one kernel's SASS: the loop that stores
+    the samples on the main path (of the regions a backward branch
+    closes that hold an STG, the first by: a 16-byte STG in it, a float64
+    operation in it, the fewest instructions), its instructions by class
+    divided by the samples one pass stores (its STG bytes / 4).  Static
+    counts: a branch not taken in the loop counts as if it were."""
+    at = {e[0]: i for i, e in enumerate(code)}
+    best = None
+    for j, (_, op, _, tgt) in enumerate(code):
+        if op != "BRA" or tgt not in at or at[tgt] > j:
+            continue
+        body = code[at[tgt]:j + 1]
+        stg = sum(_STG_BYTES.get(next((w for w in mods.split(".")
+                                       if w in _STG_BYTES), ""), 4)
+                  for _, o, mods, _ in body if o == "STG")
+        key = (any(o == "STG" and ".128" in m for _, o, m, _ in body),
+               any(sass_class(o) == "fp64" for _, o, _, _ in body),
+               -len(body))
+        if stg and (best is None or key > best[0]):
+            best = (key, body, stg)
+    if best is None:
+        return {}
+    _, body, stg = best
+    per = stg / 4
+    cls = {}
+    for _, op, _, _ in body:
+        if op != "NOP":
+            c = sass_class(op)
+            cls[c] = cls.get(c, 0) + 1
+    out = {c: n / per for c, n in sorted(cls.items())}
+    out["issue"] = sum(cls.values()) / per
+    out["samples_a_pass"] = per
+    return out
+
+
+def k4_census() -> dict:
+    """K4's kernels as built: SASS of the loaded kernel library
+    (cuobjdump -sass), the per-sample census of each kernel's sample loop
+    (sample_loop_census), and the registers nvcc -Xptxas -v reports for
+    csrc/tx_synth.cu at the library's flags.  -> {kernel: {...}}, plus
+    "clock_mhz" / "sms" for the pipe floors."""
+    import re
+
+    import torch
+    from minimodem_tpu_torch.ops import _kernels
+
+    nvcc = _kernels.nvcc_path()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    lib = _kernels.load()._name
+    res = {}
+    r = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                       text=True, timeout=300)
+    funcs = sass_functions(r.stdout) if r.returncode == 0 else {}
+    with tempfile.TemporaryDirectory() as tmp:
+        v = subprocess.run(
+            [nvcc, *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             os.path.join(tmp, "k4.o"), str(_kernels.SRC_DIR / "tx_synth.cu")],
+            capture_output=True, text=True, timeout=300)
+    regs, cur = {}, None
+    for line in (v.stdout + v.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            regs[cur] = int(m.group(1))
+    for k in K4_KERNELS:
+        name = next((f for f in funcs if k + "E" in f or f.endswith(k)), None)
+        reg = next((n for f, n in regs.items() if k + "E" in f), None)
+        c = sample_loop_census(funcs[name]) if name else {}
+        res[k] = {"registers": reg, "sass_lines": len(funcs.get(name, [])),
+                  "per_sample": c}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    clk = [float(x) for x in smi.stdout.strip().splitlines()[0].split(",")]
+    res["clock_mhz"], res["clock_now_mhz"] = clk
+    res["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    res["cuobjdump"] = r.returncode == 0
+    return res
+
+
+def pipe_floors(per_sample: dict, n_samples: int, census: dict) -> dict:
+    """Each pipe's least time (ms) for n_samples at the per-sample counts,
+    the card's SM count and top clock."""
+    hz = census["sms"] * census["clock_mhz"] * 1e6
+    return {p: n_samples * per_sample.get(p, 0.0) / (rate * hz) * 1e3
+            for p, rate in PIPE_RATES.items()}
+
+
+def floors_text(floors: dict) -> str:
+    return ", ".join(f"{p} {ms:.4f} ms" for p, ms in floors.items())
+
+
+def census_line(census: dict, kernel: str) -> str:
+    c = census[kernel]
+    ps = c["per_sample"]
+    if not ps:
+        return f"{kernel}: {c['registers']} registers, no sample loop"
+    return (f"{kernel}: {c['registers']} registers; per word stored: "
+            + ", ".join(f"{k} {ps.get(k, 0.0):.2f}" for k in (
+                "fp64", "quarter", "fp32", "alu", "uniform", "mem", "stg",
+                "control", "issue"))
+            + f" ({ps['samples_a_pass']:g} words a pass of its loop)")
 
 
 def k4_check(dev, head) -> dict:
@@ -1754,36 +1925,43 @@ def k4_check(dev, head) -> dict:
     rng = np.random.default_rng(SEED + 4)
     rows = []
 
-    def row(name, got, ref, atol):
+    def row(name, got, ref, atol, exact=False):
+        """exact: every word equal, whatever atol allows."""
         diff = (got.double() - ref.to(got.device).double()).abs()
         r = {"name": name, "max_abs_err": float(diff.max()),
              "differ": int(torch.count_nonzero(diff)), "n": diff.numel(),
              "words": int(torch.count_nonzero(
                  got.view(torch.int32) != ref.to(got.device).view(
                      torch.int32))),
-             "atol": atol}
+             "atol": atol, "exact": exact or atol == 0.0}
         del diff
         rows.append(r)
-        if r["max_abs_err"] > atol or (atol == 0.0 and r["words"]):
+        if r["max_abs_err"] > atol or (r["exact"] and r["words"]):
             fail(f"K4 {name}: max_abs_err {r['max_abs_err']}, "
-                 f"{r['words']} bit-different words (tolerance {atol})")
+                 f"{r['words']} bit-different words (tolerance {atol}"
+                 f"{', every word required equal' if r['exact'] else ''})")
 
     def nan_buffer(b, width):
         return torch.full((b, width), float("nan"), device=dev)
 
     cfg = FskModem("1200", device="cpu").cfg
     synth = TxSynth(cfg)
-    for name, (b, n_bits) in (("B=4 x 4096 bits", (4, 4096)),
-                              ("one 64.3 s stream (77824 bits)", (1, 77824))):
+    # widths off the 16-byte grid (rows past the first start off it) and
+    # 8192-sample tiles that end inside a bit (40, 160 and 1056 samples)
+    for mode, (b, n_bits) in (("1200", (4, 4096)), ("1200", (1, 77824)),
+                              ("300", (3, 1536)), ("tdd", (2, 520))):
+        mcfg = FskModem(mode, device="cpu").cfg
+        name = f"{mode} B={b} x {n_bits} bits"
         packed = torch.from_numpy(np.packbits(
             rng.integers(0, 2, (b, n_bits), dtype=np.uint8), axis=1,
             bitorder="little"))
-        width = n_bits * cfg.bit_nsamples_tx + 7001
-        got = synth.bits(packed.to(dev), width, out=nan_buffer(b, width))
+        width = n_bits * mcfg.bit_nsamples_tx + 7001
+        got = TxSynth(mcfg).bits(packed.to(dev), width,
+                                 out=nan_buffer(b, width))
         row(f"flat {name} [{b}, {width}] vs plain on the card", got,
-            synth_bits_plain(packed.to(dev), cfg, width), 0.0)
+            synth_bits_plain(packed.to(dev), mcfg, width), 0.0)
         row(f"flat {name} vs plain on the CPU", got,
-            synth_bits_plain(packed, cfg, width), 2.0 ** -23)
+            synth_bits_plain(packed, mcfg, width), 2.0 ** -23)
     for mode in K4_FRAME_MODES:
         fcfg = FskModem(mode.split()[0], device="cpu").cfg
         if "stopbits" in mode:
@@ -1802,7 +1980,8 @@ def k4_check(dev, head) -> dict:
             synth_frames_plain(bits.to(dev), nf.to(dev), fcfg, (2, 2),
                                width), atol)
         row(f"frames {mode} vs plain on the CPU", got,
-            synth_frames_plain(bits, nf, fcfg, (2, 2), width), atol)
+            synth_frames_plain(bits, nf, fcfg, (2, 2), width), atol,
+            exact=True)
         del got
     # the headline buffer, as the loopback's build_loop makes it
     lb = DeviceLoopback(cfg, device=dev)
@@ -1835,13 +2014,116 @@ def k4_check(dev, head) -> dict:
            "kernel_ms": kernel_ms, "profile_tries": tries,
            "queued_ms": queued_ms(lambda: loop.synthesize(packed), 20),
            "plain_ms": cuda_ms(lambda: loop.synthesize_plain(packed), 1),
+           "loaded_mhz": loaded_clock_mhz(lambda: loop.synthesize(packed)),
            "bytes": packed.numel() + 4 * len(head) * width,
            # float32 operations a sample: the FMA (2), floor, subtract
            # and two multiplies; the float64 sine beside them
            "flop": 6 * n_samples, "sines": n_samples}
     res["bound"] = bound(res["bytes"], res["flop"])
+    del lb, loop, packed
     torch.cuda.empty_cache()
-    return {"rows": rows, "head": res}
+    return {"rows": rows, "head": res, "frames": k4_frames_times(dev),
+            "sine": k4_sine_check(dev)}
+
+
+def loaded_clock_mhz(fn, reps: int = 400) -> float:
+    """The card's SM clock (nvidia-smi clocks.sm) read while reps calls
+    of fn() queued behind a sleeping kernel run."""
+    import torch
+
+    torch.cuda._sleep(20_000_000)
+    for _ in range(reps):
+        fn()
+    time.sleep(0.05)
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    torch.cuda.synchronize()
+    return float(r.stdout.strip().splitlines()[0])
+
+
+# every float32 in [0, 1): the bit patterns 0x00000000 to 0x3F7FFFFF
+SINE_TOP = 0x3F7FFFFF
+
+
+def k4_sine_check(dev) -> dict:
+    """K4's sine (sin_2pi in csrc/tx_synth.cu) against CUDA's float64 sin
+    rounded to float32 on every float32 fraction of a turn in [0, 1),
+    1,065,353,216 inputs (ops/tx_device.py sin_check), timed with CUDA
+    events; any input whose result differs in a bit fails the run."""
+    import torch
+    from minimodem_tpu_torch.ops.tx_device import sin_check
+
+    sin_check(0, 1 << 20, 1, dev)                       # warm-up
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    bad, first = sin_check(0, SINE_TOP, 1, dev)
+    end.record()
+    torch.cuda.synchronize()
+    r = {"inputs": SINE_TOP + 1, "mismatches": bad, "first": first,
+         "ms": start.elapsed_time(end)}
+    if bad:
+        fail(f"K4's sine differs from CUDA's sin on {bad} of "
+             f"{r['inputs']} inputs, the first at "
+             f"{first:#010x}")
+    return r
+
+
+def k4_frames_times(dev) -> list:
+    """K4's frames entry timed at the frame-schedule bench row's shape
+    (bench.mode_loopback_throughput: B = 8 streams of a 15 s payload, the
+    frames padded to a multiple of 512, the loopback's buffer) for rtty,
+    tdd and Bell-202 with 1.5 stop bits: alone (torch.profiler, its two
+    kernels), queued behind a sleep and per call (CUDA events), the plain
+    route on the card, and the bound (the buffer written once, the frame
+    bits read once).  -> rows."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch.bench import _mode_payload
+    from minimodem_tpu_torch.codecs import get_codec
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.ops.device_rx import DeviceLoopback
+    from minimodem_tpu_torch.ops.tx_device import tx_frame_schedule
+
+    rows = []
+    for mode in K4_FRAME_MODES:
+        m = FskModem(mode.split()[0], device="cpu")
+        if "stopbits" in mode:
+            m.cfg.nstopbits = np.float32(1.5)
+            m.cfg.finalize()
+        enc = (get_codec(m.preset.encoder) if m.preset.encoder != "baudot"
+               else get_codec("baudot", usos=True))
+        fb, lead, trail = tx_frame_schedule(_mode_payload(m, 15.0), m.cfg,
+                                            enc)
+        b, f_real = 8, fb.shape[0]
+        f_pad = -(-f_real // 512) * 512
+        bits = np.zeros((b, f_pad, m.cfg.n_data_bits), np.uint8)
+        bits[:, :f_real] = fb
+        bits = torch.from_numpy(bits).to(dev)
+        nf = torch.full((b,), f_real, dtype=torch.int32, device=dev)
+        lb = DeviceLoopback(m.cfg, device=dev)
+        loop = lb.build_loop(f_pad, True, (lead, trail))
+        width = loop.t_total + lb.halo
+        run = lambda: loop.synthesize(bits, nf)        # noqa: E731
+        for tries in range(1, PROFILE_TRIES + 1):
+            kernel_ms, kernels = device_ms_per_call(run, 5)
+            if kernels == 2:
+                break
+        else:
+            kernel_ms = None
+        n = b * (loop.t_total)
+        r = {"mode": mode, "shape": f"[{b}, {f_pad}, {m.cfg.n_data_bits}] "
+             f"(n_frames {f_real}) -> [{b}, {width}]",
+             "kernel_ms": kernel_ms, "profile_tries": tries,
+             "queued_ms": queued_ms(run, 20), "ms": cuda_ms(run, 5),
+             "plain_ms": cuda_ms(lambda: loop.synthesize_plain(bits, nf), 1),
+             "bytes": bits.numel() + 4 * nf.numel() + 4 * b * width,
+             "flop": 6 * n, "samples": n}
+        r["bound"] = bound(r["bytes"], r["flop"])
+        rows.append(r)
+        del bits, lb, loop
+        torch.cuda.empty_cache()
+    return rows
 
 
 def events_close(got, ref) -> bool:
@@ -3320,7 +3602,25 @@ def main() -> int:
         phase(f"K4 {r['name']}: max_abs_err {r['max_abs_err']} (tolerance "
               f"{r['atol']}), {r['differ']} of {r['n']} samples differ "
               f"({r['words']} bit-different words)")
+    sn = k4["sine"]
+    phase(f"K4 sine (sin_2pi) against CUDA's float64 sin rounded to float32 "
+          f"on every float32 fraction of a turn in [0, 1): {sn['mismatches']} "
+          f"of {sn['inputs']:,} differ, {sn['ms']:.3f} ms ({card})")
+    cen = k4_census()
+    if not cen["cuobjdump"]:
+        fail("K4 census: cuobjdump -sass of the kernel library failed")
+    phase(f"K4 census (SASS of the loaded library by cuobjdump -sass, "
+          f"registers from nvcc -Xptxas -v; the instructions of each "
+          f"kernel's sample loop over the 4-byte words a pass stores, by "
+          f"pipe; {cen['sms']} SMs, clocks.max.sm {cen['clock_mhz']:.0f} "
+          f"MHz, clocks.sm {k4['head']['loaded_mhz']:.0f} MHz under K4 at the "
+          f"headline buffer; pipe floors at clocks.max.sm and the rates a "
+          f"clock an SM {PIPE_RATES})")
+    for k in K4_KERNELS:
+        phase(f"K4 census {census_line(cen, k)}")
     k4h = k4["head"]
+    k4h["floors"] = pipe_floors(
+        cen["tx_synth_bits_kernel"]["per_sample"], k4h["sines"], cen)
     phase(f"time K4 at the headline buffer {k4h['shape']}: "
           f"{fmt_ms(k4h['kernel_ms'])} alone (its 2 kernels, torch.profiler, "
           f"{k4h['profile_tries']} window(s)), {k4h['queued_ms']:.4f} ms "
@@ -3328,8 +3628,18 @@ def main() -> int:
           f"plain route {k4h['plain_ms']:.3f} ms, bound "
           f"{k4h['bound'][0]:.4f} ms ({k4h['bound'][1]}: "
           f"{k4h['bytes'] / 1e9:.3f} GB, {k4h['flop'] / 1e9:.2f} GFLOP "
-          f"float32) beside {k4h['sines'] / 1e6:.1f} M float64 sines "
-          f"({card})")
+          f"float32) beside {k4h['sines'] / 1e6:.1f} M float64 sines; pipe "
+          f"floors {floors_text(k4h['floors'])} ({card})")
+    for r in k4["frames"]:
+        r["floors"] = pipe_floors(
+            cen["tx_synth_frames_kernel"]["per_sample"], r["samples"], cen)
+        phase(f"time K4 frames {r['mode']} at {r['shape']}: "
+              f"{fmt_ms(r['kernel_ms'])} alone (its 2 kernels, "
+              f"torch.profiler, {r['profile_tries']} window(s)), "
+              f"{r['queued_ms']:.4f} ms queued, {r['ms']:.4f} ms per call, "
+              f"plain route {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); pipe floors "
+              f"{floors_text(r['floors'])} ({card})")
 
     # ---- 12. the loopback on the card against device="cpu" ----
     for r in loopback_cuda_vs_cpu(dev):
@@ -3598,9 +3908,19 @@ def main() -> int:
          "differ_vs_cpu": {r["name"]: r["differ"] for r in k4["rows"]
                            if r["name"].endswith("on the CPU")},
          "ms": k4h["ms"], "kernel_ms": k4h["kernel_ms"],
-         "queued_ms": k4h["queued_ms"], "plain_ms": k4h["plain_ms"], "bound_ms": k4h["bound"][0],
-         "bound_by": k4h["bound"][1], "library_ms": None,
-         "fp64_sines": k4h["sines"],
+         "queued_ms": k4h["queued_ms"], "plain_ms": k4h["plain_ms"],
+         "bound_ms": k4h["bound"][0], "bound_by": k4h["bound"][1],
+         "library_ms": None, "fp64_sines": k4h["sines"],
+         "pipe_floors_ms": k4h["floors"],
+         "clock_under_load_mhz": k4h["loaded_mhz"],
+         "per_sample": {k: cen[k]["per_sample"] for k in K4_KERNELS},
+         "registers": {k: cen[k]["registers"] for k in K4_KERNELS},
+         "sine_check": k4["sine"],
+         "frames": {r["mode"]: {
+             "kernel_ms": r["kernel_ms"], "queued_ms": r["queued_ms"],
+             "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+             "pipe_floors_ms": r["floors"]} for r in k4["frames"]},
          "loopback_launches": lb_launches["tx_synth"],
          "loopback_kernel_ms": ss["split"]["K4 synthesis"],
          "rows_launches": rows_launches["tx_synth"],

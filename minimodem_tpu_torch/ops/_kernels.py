@@ -7,7 +7,9 @@ plain C interface:
                                         (ops/correlate.py)
     K4  tx_synth.cu     mm_tx_synth_bits, mm_tx_synth_frames
                                         the loopback's synthesis
-                                        (ops/tx_device.py TxSynth)
+                                        (ops/tx_device.py TxSynth);
+                        mm_tx_sin_check its sine against CUDA's
+                                        (ops/tx_device.py sin_check)
 
 At first use each source is compiled by its own nvcc, all started
 together,
@@ -58,9 +60,12 @@ _SIGNATURES = {
                        _U, _I, _I, _I, _P, _P],
     "mm_mega_rx": [_P] * 12,
     "mm_correlate": [_P, _LL, _I, _I, _P, _I, _I, _I, _P, _P],
-    "mm_tx_synth_bits": [_P, _I, _I, _I, _D, _D, _F, _F, _F, _P, _P, _I, _P],
+    "mm_tx_synth_bits": [_P, _I, _I, _I, _U, _I, _D, _D, _F, _F, _F, _P, _P,
+                         _I, _P],
     "mm_tx_synth_frames": [_P, _P, _I, _I, _I, _I, _IP, _IP, _I, _I, _D, _D,
-                           _F, _F, _I, _I, _D, _F, _P, _P, _P, _I, _P],
+                           _F, _F, _I, _I, _D, _F, _I, _I, _I, _I, _U, _I,
+                           _U, _I, _P, _P, _P, _I, _P],
+    "mm_tx_sin_check": [_U, _U, _U, _P, _P, _P],
 }
 
 

@@ -38,6 +38,8 @@ RX without audio crossing the host link).
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -185,6 +187,31 @@ def frame_synth_params(cfg: ModemConfig):
         inv_wave_space=float(cfg.space_f) / rate,
         leader_tone=0 if cfg.invert_start_stop else 1,
     )
+
+
+def magic_divisor(d: int) -> tuple:
+    """(m, s) with n // d == (2n * m) >> (32 + s) for every 0 <= n < 2^31
+    (K4's division a sample: a multiply-high and a shift).  s is
+    ceil(log2 d) and m = floor(2^(31 + s) / d) + 1 < 2^32, whose error
+    m * d - 2^(31 + s) <= d <= 2^s keeps every quotient exact."""
+    if not 1 <= d < 2 ** 31:
+        raise ValueError(f"divisor {d} outside [1, 2^31)")
+    s = (d - 1).bit_length()
+    return (1 << (31 + s)) // d + 1, s
+
+
+def frame_map(p: dict) -> dict:
+    """The shape of frame_synth_params' template that K4's frames kernel
+    maps a frame offset o through, in place of the seg_of / off_in tables:
+    segments [0, s_uni) are one head segment of `head` samples, then
+    n_uni segments of uni_len (= bit_ns) samples, then at most one tail.
+    o < head lies in segment 0 at o; else with j = min((o - head) //
+    uni_len, n_uni) in segment s_uni + j at o - head - j * uni_len."""
+    kinds = [int(k) for k in p["seg_kind"]]
+    s_uni = int(kinds[0] == 0)
+    n_uni = sum(k > 0 for k in kinds)
+    return dict(head=int(p["seg_len"][0]) if s_uni else 0, s_uni=s_uni,
+                uni_len=int(p["bit_ns"]), n_uni=n_uni)
 
 
 # ======================================================================
@@ -417,6 +444,38 @@ class TxSynth:
     def __init__(self, cfg: ModemConfig, amplitude: float = 1.0):
         self.cfg = cfg
         self.amp = float(np.float32(amplitude))
+        p = synth_params(cfg)
+        self._bits_args = (p["bit_ns"], *magic_divisor(p["bit_ns"]),
+                           float(p["inc_mark"]), float(p["inc_space"]),
+                           float(np.float32(p["inv_wave_mark"])),
+                           float(np.float32(p["inv_wave_space"])), self.amp)
+        self._frames_args = None
+
+    def _frame_args(self, lead_trail: tuple) -> tuple:
+        """(frame_len, the frames entry's arguments from n_seg to uni_s):
+        frame_synth_params, its frame_map and divisors made once a
+        TxSynth."""
+        if self._frames_args is None:
+            p = frame_synth_params(self.cfg)
+            fm = frame_map(p)
+            ints = ctypes.c_int * len(p["seg_len"])
+            iwm = float(p["inv_wave_mark"])
+            iws = float(p["inv_wave_space"])
+            iw_lead = iwm if p["leader_tone"] == 1 else iws
+            self._frames_args = p["frame_len"], p["bit_ns"], iw_lead, (
+                len(p["seg_len"]), ints(*map(int, p["seg_len"])),
+                ints(*map(int, p["seg_kind"])), int(p["start_tone"]),
+                int(p["stop_tone"]), iwm, iws, float(np.float32(iw_lead)),
+                float(np.float32(iwm))), (
+                fm["head"], fm["s_uni"], fm["uni_len"], fm["n_uni"],
+                *magic_divisor(p["frame_len"]),
+                *magic_divisor(fm["uni_len"]))
+        frame_len, bit_ns, iw_lead, tpl, fmap = self._frames_args
+        lead_len = lead_trail[0] * bit_ns
+        return frame_len, tpl + (
+            lead_len, lead_trail[1] * bit_ns,
+            float(np.float64(lead_len) * np.float64(iw_lead)),
+            self.amp) + fmap
 
     @staticmethod
     def _out(dev, bsz: int, width: int, out):
@@ -450,21 +509,18 @@ class TxSynth:
         if packed.dim() != 2 or packed.dtype != torch.uint8:
             raise ValueError(f"expected [B, n_bytes] uint8 packed bits, got "
                              f"{tuple(packed.shape)} {packed.dtype}")
-        p = synth_params(self.cfg)
+        bit_ns = self._bits_args[0]
         bsz, n_bytes = packed.shape
-        if not 8 * n_bytes * p["bit_ns"] <= width < 2 ** 31:
+        if not 8 * n_bytes * bit_ns <= width < 2 ** 31:
             raise ValueError(f"width {width} does not hold {8 * n_bytes} "
-                             f"bits of {p['bit_ns']} samples (< 2^31)")
+                             f"bits of {bit_ns} samples (< 2^31)")
         out = self._out(dev, bsz, width, out)
         if bsz == 0 or n_bytes == 0:
             return out.zero_()
         packed = packed.contiguous()
         prefix = torch.empty((bsz, n_bytes), dtype=torch.int32, device=dev)
         err = _kernels.load().mm_tx_synth_bits(
-            packed.data_ptr(), bsz, n_bytes, p["bit_ns"],
-            float(p["inc_mark"]), float(p["inc_space"]),
-            float(np.float32(p["inv_wave_mark"])),
-            float(np.float32(p["inv_wave_space"])), self.amp,
+            packed.data_ptr(), bsz, n_bytes, *self._bits_args,
             prefix.data_ptr(), out.data_ptr(), width,
             torch.cuda.current_stream(dev).cuda_stream)
         _kernels.check(err, "mm_tx_synth_bits")
@@ -477,8 +533,6 @@ class TxSynth:
         """frame_bits [B, F, n_data_bits] uint8, n_frames [B] -> out
         [B, width] float32: device_synthesize_frames' samples (leader,
         F frames, the trailer after each stream's real frames), then 0.0."""
-        import ctypes
-
         from . import _kernels
 
         dev = self._check(frame_bits, n_frames)
@@ -491,33 +545,43 @@ class TxSynth:
                 f"[B] frame counts, got {tuple(frame_bits.shape)} "
                 f"{frame_bits.dtype}, {tuple(n_frames.shape)}")
         bsz, n_pad = frame_bits.shape[:2]
-        if not frames_len(cfg, n_pad, lead_trail) <= width < 2 ** 31:
+        frame_len, args = self._frame_args(lead_trail)
+        n_samples = (sum(lead_trail) * cfg.bit_nsamples_tx
+                     + n_pad * frame_len)
+        if not n_samples <= width < 2 ** 31:
             raise ValueError(f"width {width} does not hold {n_pad} frames "
                              f"with {lead_trail} lead/trail bits (< 2^31)")
         out = self._out(dev, bsz, width, out)
         if bsz == 0 or n_pad == 0:
             return out.zero_()
-        p = frame_synth_params(cfg)
-        n_seg = len(p["seg_len"])
-        iwm = float(np.float64(p["inv_wave_mark"]))
-        iws = float(np.float64(p["inv_wave_space"]))
-        iw_lead = iwm if p["leader_tone"] == 1 else iws
-        lead_len = lead_trail[0] * p["bit_ns"]
-        seg = torch.empty((bsz, n_pad, n_seg, 2), dtype=torch.float32,
+        seg = torch.empty((bsz, n_pad, args[0], 2), dtype=torch.float32,
                           device=dev)
         ph0 = torch.empty((bsz,), dtype=torch.float32, device=dev)
         frame_bits = frame_bits.contiguous()
         n_frames = n_frames.to(torch.int32).contiguous()
-        ints = ctypes.c_int * n_seg
         err = _kernels.load().mm_tx_synth_frames(
             frame_bits.data_ptr(), n_frames.data_ptr(), bsz, n_pad,
-            cfg.n_data_bits, n_seg, ints(*map(int, p["seg_len"])),
-            ints(*map(int, p["seg_kind"])), int(p["start_tone"]),
-            int(p["stop_tone"]), iwm, iws, float(np.float32(iw_lead)),
-            float(np.float32(iwm)), lead_len, lead_trail[1] * p["bit_ns"],
-            float(np.float64(lead_len) * np.float64(iw_lead)), self.amp,
-            seg.data_ptr(), ph0.data_ptr(), out.data_ptr(), width,
-            torch.cuda.current_stream(dev).cuda_stream)
+            cfg.n_data_bits, *args, seg.data_ptr(), ph0.data_ptr(),
+            out.data_ptr(), width, torch.cuda.current_stream(dev).cuda_stream)
         _kernels.check(err, "mm_tx_synth_frames")
         TxSynth.frames_launches += 1
         return out
+
+
+def sin_check(lo: int, hi: int, stride: int = 1, device="cuda") -> tuple:
+    """K4's sine (csrc/tx_synth.cu sin_2pi) against CUDA's float64 sin
+    rounded to float32, on the card, for the float32 bit patterns lo, lo +
+    stride, ... <= hi (at most 0x3F7FFFFF, the float just below 1) taken
+    as the fraction of a turn.  -> (how many differ in any bit, the lowest
+    that does or None)."""
+    from . import _kernels
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"sin_check runs on a CUDA device, not {dev}")
+    res = torch.tensor([0, -1], dtype=torch.int32, device=dev)
+    _kernels.check(_kernels.load().mm_tx_sin_check(
+        lo, hi, stride, res.data_ptr(), res[1:].data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "mm_tx_sin_check")
+    count, first = (int(v) & 0xFFFFFFFF for v in res.cpu())
+    return count, (None if count == 0 else first)

@@ -833,20 +833,25 @@ def _bit_words(t):
     return t.contiguous().view(torch.int32).cpu().numpy()
 
 
+@pytest.mark.parametrize("mode,pad", [("1200", 5000), ("1200", 5001),
+                                      ("300", 4099)])
 @pytest.mark.parametrize("batch", [1, 3, 129])
-def test_tx_synth_bits_equals_plain(cuda, batch):
+def test_tx_synth_bits_equals_plain(cuda, batch, mode, pad):
     """K4 in flat mode against its plain route on the card (unpack,
     device_synthesize, the zero tail), bit for bit: integer phase counts,
-    one correctly rounded FMA and CUDA's float64 sine on both sides."""
+    one correctly rounded FMA and CUDA's float64 sine on both sides.  A
+    width on the 16-byte grid and off it (width % 4 != 0: every row past
+    the first starts off the grid, scalar stores at its edges); K4's
+    8192-sample tiles end inside a bit (40 and 160 samples a bit)."""
     from minimodem_tpu_torch.ops.tx_device import TxSynth, synth_bits_plain
 
-    cfg = _modem("1200").cfg
+    cfg = _modem(mode).cfg
     rng = np.random.default_rng(batch)
     n_bits = 4096 + 512 * (batch % 3)
     packed = torch.from_numpy(np.packbits(
         rng.integers(0, 2, (batch, n_bits), dtype=np.uint8), axis=1,
         bitorder="little")).to(cuda)
-    width = n_bits * cfg.bit_nsamples_tx + 5000
+    width = n_bits * cfg.bit_nsamples_tx + pad
     launches = TxSynth.launches
     got = TxSynth(cfg, 0.8).bits(packed, width)
     assert TxSynth.launches == launches + 1
@@ -901,7 +906,36 @@ def test_tx_synth_frames_within_turns_atol(cuda, mode):
         ref = synth_frames_plain(bits.to(dev), nf.to(dev), cfg, lt, width,
                                  0.7)
         _samples_close(got, ref.cpu().double(), atol)
+    # the CPU's plain version word for word (K4 sums in the CPU's order)
+    np.testing.assert_array_equal(_bit_words(got), _bit_words(ref))
     assert torch.count_nonzero(got[:, frames_len(cfg, n_pad, lt):]) == 0
+
+
+def _sine_edges():
+    """0, the smallest subnormal, the floats either side of each quarter
+    turn (0.25, 0.5, 0.75) and the float just below 1, as bit patterns."""
+    quarters = [int(np.float32(q).view(np.uint32)) for q in (0.25, 0.5, 0.75)]
+    return [0, 1] + [q + e for q in quarters for e in (-1, 0, 1)] + [
+        0x3F7FFFFF]
+
+
+@pytest.mark.parametrize("lo,hi,stride", [
+    (0, 0x3F7FFFFF, 4099),                     # a strided sweep of [0, 1)
+    (0x3E000000, 0x3F7FFFFF, 97)])             # denser over [1/8, 1)
+def test_k4_sine_equals_cuda_sin(cuda, lo, hi, stride):
+    """K4's sine (sin_2pi: CUDA's own float64 operations for the domain
+    [0, 2 pi)) against CUDA's sin rounded to float32, every bit; the
+    whole range is chip_smoke.py phase 11's."""
+    from minimodem_tpu_torch.ops.tx_device import sin_check
+
+    assert sin_check(lo, hi, stride, cuda) == (0, None)
+
+
+@pytest.mark.parametrize("bits", _sine_edges())
+def test_k4_sine_edge_values(cuda, bits):
+    from minimodem_tpu_torch.ops.tx_device import sin_check
+
+    assert sin_check(bits, bits, 1, cuda) == (0, None)
 
 
 def test_tx_synth_refuses_cpu_tensors(cuda):
