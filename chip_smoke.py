@@ -76,10 +76,10 @@ one line each; any failure exits non-zero:
      them); then, the counts set to 0 again, rtty (K4's frames entry) and
      SAME (B = 8, 15 s), Caller-ID (B = 128, pipeline 4) and the
      --benchmarks decode rows (60 s);
- 14. a torch.profiler stage split of one warm B = 128 batch (K4's
-     synthesis, K1, K2, upload, collect; the device idle share; how soon
-     the host's
-     dispatch returned), its peak device memory, and K1 / K2 timed at
+ 14. a torch.profiler stage split of one warm B = 128 batch in a child
+     process of its own (K4's synthesis, K1, K2, upload, collect; the
+     device idle share; how soon the host's dispatch returned), its
+     peak device memory, and K1 / K2 timed at
      the loopback's shape beside their bounds;
  15. the geometries K1 does not serve, at their full width, each a ~60 s
      file decode by `minimodem-tpu-torch --rx --file` on the card (K2 and,
@@ -230,7 +230,10 @@ RUNNER_KEYS = {
 
 
 def fail(msg: str) -> None:
+    """Print the failure on both streams (a caller that keeps only the end
+    of standard error still sees why) and exit 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -2002,9 +2005,11 @@ def k4_check(dev, head) -> dict:
     n_samples = len(head) * b_pad * lb.bit_ns
     # K4's two kernels alone: torch.profiler (a window that missed some
     # of them profiled again), and CUDA events behind a sleeping kernel
+    seen = []
     for tries in range(1, PROFILE_TRIES + 1):
         kernel_ms, kernels = device_ms_per_call(
             lambda: loop.synthesize(packed), 5)
+        seen.append(kernels)
         if kernels == 2:
             break
     else:
@@ -2012,6 +2017,7 @@ def k4_check(dev, head) -> dict:
     res = {"shape": f"{list(packed.shape)} -> [{len(head)}, {width}]",
            "ms": cuda_ms(lambda: loop.synthesize(packed), 5),
            "kernel_ms": kernel_ms, "profile_tries": tries,
+           "profile_seen": seen,
            "queued_ms": queued_ms(lambda: loop.synthesize(packed), 20),
            "plain_ms": cuda_ms(lambda: loop.synthesize_plain(packed), 1),
            "loaded_mhz": loaded_clock_mhz(lambda: loop.synthesize(packed)),
@@ -2105,8 +2111,10 @@ def k4_frames_times(dev) -> list:
         loop = lb.build_loop(f_pad, True, (lead, trail))
         width = loop.t_total + lb.halo
         run = lambda: loop.synthesize(bits, nf)        # noqa: E731
+        seen = []
         for tries in range(1, PROFILE_TRIES + 1):
             kernel_ms, kernels = device_ms_per_call(run, 5)
+            seen.append(kernels)
             if kernels == 2:
                 break
         else:
@@ -2115,6 +2123,7 @@ def k4_frames_times(dev) -> list:
         r = {"mode": mode, "shape": f"[{b}, {f_pad}, {m.cfg.n_data_bits}] "
              f"(n_frames {f_real}) -> [{b}, {width}]",
              "kernel_ms": kernel_ms, "profile_tries": tries,
+             "profile_seen": seen,
              "queued_ms": queued_ms(run, 20), "ms": cuda_ms(run, 5),
              "plain_ms": cuda_ms(lambda: loop.synthesize_plain(bits, nf), 1),
              "bytes": bits.numel() + 4 * nf.numel() + 4 * b * width,
@@ -2289,6 +2298,30 @@ STAGES = (("K1", "fused_score_kernel"), ("K2", "mega_rx_kernel"),
 # this script's run)
 PROFILE_TRIES = 5
 
+# the stage split in a child process of its own: late in this script's
+# run, after the live and soak phases, torch.profiler on an H100 records
+# no device activity at all in one to five windows in a row, while a
+# fresh process records every one
+STAGE_CHILD = """
+import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+print(json.dumps(chip_smoke.stage_split_main()))
+"""
+
+
+def stage_split_main() -> dict:
+    """stage_split of the headline batch (B = HEAD_BATCH x HEAD_SECONDS
+    of Bell-202 on a DeviceLoopback of its own), for STAGE_CHILD."""
+    import torch
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.ops.device_rx import DeviceLoopback
+
+    cfg = FskModem("1200", device="cpu").cfg
+    head = headline_sets(cfg, HEAD_BATCH, 1, HEAD_SECONDS)[0][1]
+    return stage_split(DeviceLoopback(cfg, device=torch.device("cuda", 0)),
+                       head)
+
 
 def stage_split(lb, scheds) -> dict:
     """One warm synchronous batch under torch.profiler: device time by
@@ -2309,6 +2342,7 @@ def stage_split(lb, scheds) -> dict:
     t_disp_plain = time.perf_counter() - t0
     lb.collect_events_batch(h)
     wall_plain = time.perf_counter() - t0
+    missed = []
     for tries in range(1, PROFILE_TRIES + 1):
         counts = reset_counts()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2339,13 +2373,18 @@ def stage_split(lb, scheds) -> dict:
                 got[name] += e.count
         if got == want:
             break
+        missed.append({"got": got, "want": want, "rows": [
+            (e.key[:48], str(getattr(e, "device_type", "")), e.count)
+            for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0]})
     else:
         fail(f"torch.profiler missed kernels of the stage split in "
-             f"{PROFILE_TRIES} windows: {got} of {want}")
+             f"{PROFILE_TRIES} windows: {missed}")
     busy = sum(split.values())
     return {"split": split, "busy_ms": busy, "wall_ms": wall * 1e3,
             "dispatch_ms": t_disp * 1e3, "wall_plain_ms": wall_plain * 1e3,
-            "dispatch_plain_ms": t_disp_plain * 1e3, "tries": tries}
+            "dispatch_plain_ms": t_disp_plain * 1e3, "tries": tries,
+            "missed": missed}
 
 
 # ======================================================================
@@ -3326,7 +3365,9 @@ def main() -> int:
     # ---- 1. card, versions, kernel build ----
     card = card_line()
     phase(f"card: {card}; torch {torch.__version__} cuda "
-          f"{torch.version.cuda}; device {torch.cuda.get_device_name(0)}")
+          f"{torch.version.cuda}; device {torch.cuda.get_device_name(0)}; "
+          f"host CPU kernels {torch.backends.cpu.get_cpu_capability()} "
+          f"(the plain versions on the CPU)")
     t0 = time.perf_counter()
     _kernels.load()
     phase(f"build: kernels loaded in {time.perf_counter() - t0:.1f} s "
@@ -3623,7 +3664,8 @@ def main() -> int:
         cen["tx_synth_bits_kernel"]["per_sample"], k4h["sines"], cen)
     phase(f"time K4 at the headline buffer {k4h['shape']}: "
           f"{fmt_ms(k4h['kernel_ms'])} alone (its 2 kernels, torch.profiler, "
-          f"{k4h['profile_tries']} window(s)), {k4h['queued_ms']:.4f} ms "
+          f"{k4h['profile_tries']} window(s), device records a call "
+          f"{k4h['profile_seen']}), {k4h['queued_ms']:.4f} ms "
           f"queued behind a sleep (CUDA events), {k4h['ms']:.4f} ms per call, "
           f"plain route {k4h['plain_ms']:.3f} ms, bound "
           f"{k4h['bound'][0]:.4f} ms ({k4h['bound'][1]}: "
@@ -3635,7 +3677,8 @@ def main() -> int:
             cen["tx_synth_frames_kernel"]["per_sample"], r["samples"], cen)
         phase(f"time K4 frames {r['mode']} at {r['shape']}: "
               f"{fmt_ms(r['kernel_ms'])} alone (its 2 kernels, "
-              f"torch.profiler, {r['profile_tries']} window(s)), "
+              f"torch.profiler, {r['profile_tries']} window(s), device "
+              f"records a call {r['profile_seen']}), "
               f"{r['queued_ms']:.4f} ms queued, {r['ms']:.4f} ms per call, "
               f"plain route {r['plain_ms']:.3f} ms, bound "
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]}); pipe floors "
@@ -3694,7 +3737,11 @@ def main() -> int:
           f"other rows (set to 0 again): {rows_launches}")
 
     # ---- 14. stage split and peak memory of one warm B = 128 batch ----
-    ss = stage_split(lb, head)
+    rc, out, err, _ = module_run(
+        ["-c", STAGE_CHILD.format(root=str(ROOT))], 600)
+    if rc != 0:
+        fail(f"the stage split's process exited {rc}: {err[-2000:]}")
+    ss = json.loads(out.strip().splitlines()[-1])
     if not ss["busy_ms"]:
         fail("torch.profiler saw no device time in the stage split")
     parts = "; ".join(f"{k} {v:.3f} ms ({100 * v / ss['busy_ms']:.1f}%)"
@@ -3707,6 +3754,9 @@ def main() -> int:
           f"dispatch returned after {ss['dispatch_ms']:.2f} ms; unprofiled: "
           f"wall {ss['wall_plain_ms']:.2f} ms, dispatch returned after "
           f"{ss['dispatch_plain_ms']:.2f} ms ({card})")
+    if ss["missed"]:
+        phase(f"stage split: the profiled windows before the last missed "
+              f"device records: {ss['missed']}")
     lk["k1_kernel_ms"] = ss["split"]["K1"]
     lk["k2_kernel_ms"] = ss["split"]["K2"]
     torch.cuda.synchronize()

@@ -257,6 +257,27 @@ def _frame_consts(p: dict, device: torch.device):
     return _FRAME_CONSTS[key]
 
 
+def _frame_sum(seg_turns: torch.Tensor) -> torch.Tensor:
+    """seg_turns.sum(-1) over a frame's segments (at most 16), in one
+    stated order on every device and CPU: four lanes, lane l summing
+    segments l, l + 4, ... of the whole groups of four in turn; the rest
+    in order from 0.0; then lanes 0-3 added to it.  That is the order of
+    PyTorch's vectorized CPU sum of a short contiguous float64 row, which
+    K4's frames prep kernel keeps; written out, the plain version does not
+    hang on which vector width the host's CPU kernels take."""
+    n = seg_turns.shape[-1]
+    whole = n - n % 4
+    fin = torch.zeros_like(seg_turns[..., 0])
+    for s in range(whole, n):
+        fin = fin + seg_turns[..., s]
+    for lane in range(4 if whole else 0):
+        acc = seg_turns[..., lane]
+        for s in range(lane + 4, whole, 4):
+            acc = acc + seg_turns[..., s]
+        fin = fin + acc
+    return fin
+
+
 def _sin_2pi_frac(turns: torch.Tensor) -> torch.Tensor:
     """sin(float32(2pi) * (turns - floor(turns))) in float32, the sine
     evaluated in float64 and rounded once."""
@@ -333,7 +354,7 @@ def device_synthesize_frames(frame_bits: torch.Tensor, n_frames: torch.Tensor,
     # closed-form base phases: exclusive prefix over segments-in-frame
     # and over frames (float64)
     within = torch.cumsum(seg_turns, dim=2) - seg_turns        # [B, F, S]
-    per_frame = seg_turns.sum(dim=2)                           # [B, F]
+    per_frame = _frame_sum(seg_turns)                          # [B, F]
     base = torch.cumsum(per_frame, dim=1) - per_frame          # [B, F]
 
     leader_len = leader_bits_len * p["bit_ns"]

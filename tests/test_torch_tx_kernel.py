@@ -208,6 +208,33 @@ def test_frame_map_equals_seg_of_off_in(mode, stop):
                                   np.tile(p["off_in"], 3))
 
 
+@pytest.mark.parametrize("n_seg", range(1, 17))
+def test_frame_sum_in_its_stated_order(n_seg):
+    """The plain frames route's sum over a frame's segments, against the
+    order K4's prep kernel takes written out on Python floats (lanes over
+    the whole groups of four, the rest from 0.0, then the lanes), so the
+    CPU's plain version is the same on every host; and, on a host whose
+    CPU sum runs four float64 lanes, equal to torch's own sum."""
+    rng = np.random.default_rng(n_seg)
+    x = rng.random((5, n_seg)) * 7.3
+    whole = n_seg - n_seg % 4
+    want = []
+    for row in x.tolist():
+        lanes = [0.0] * 4
+        for s in range(whole):
+            lanes[s % 4] += row[s]
+        fin = 0.0
+        for v in row[whole:]:
+            fin += v
+        for v in lanes:
+            fin += v
+        want.append(fin)
+    got = T._frame_sum(torch.from_numpy(x))
+    assert got.tolist() == want
+    if torch.backends.cpu.get_cpu_capability() in ("AVX2", "AVX512"):
+        assert torch.equal(got, torch.from_numpy(x).sum(-1))
+
+
 def _smoke():
     """chip_smoke.py as a module (it imports nothing at its top but the
     standard library)."""
