@@ -32,18 +32,23 @@ one line each; any failure exits non-zero:
      then rows at an odd stride (most start off the 16-byte grid) and
      rtty's 1056-tap filter, bit for bit;
   7. the host engines end to end on the same file: `--engine host` and
-     `--engine host-native`, in process (K3 launch counts, plain calls 0)
-     and as --device cuda / --device cpu subprocesses: stdout byte-exact,
+     `--engine host-native`, in process (K3 and K5 launch counts with the
+     counts set to 0 just before and read just after, plain calls 0;
+     K3's and K5's last launches held against their plain versions) and
+     as --device cuda / --device cpu subprocesses: stdout byte-exact,
      stderr equal to the device engine's;
   8. the float64 route: `1200 --samplerate 24000 -M 1200 -S 2400 --engine
-     host` prints confidence=inf and (rate perfect), cuda == cpu;
-  9. `-a` on two bursts with a retune between them, --engine host (K3)
-     and --engine device (stop-on-overflow decodes through K1 and K2),
-     cuda and cpu, all four byte for byte;
+     host` prints confidence=inf and (rate perfect), cuda == cpu; K5
+     launched on its float64 correlation, held against its plain version;
+  9. `-a` on two bursts with a retune between them, --engine host (K3
+     and K5) and --engine device (stop-on-overflow decodes through K1 and
+     K2), cuda and cpu, all four byte for byte;
  10. K3 and host-engine timings (warm decode walls, the host engine's
      split between chunk scoring and the Python state machine, a
-     torch.profiler breakdown), each beside the card's name and power
-     limit;
+     torch.profiler breakdown; the host scorer's stage 1 and K5 timed
+     apart at `score`'s one chunk row and `score_chunks`' rows, beside
+     the plain channels and K5's bound, K5 bit for bit the plain
+     version), each beside the card's name and power limit;
  11. device TX on the card against its CPU version: device_synthesize at
      B = 4 and at one 64.3 s stream, device_synthesize_frames at rtty,
      and `--synth-backend jax` (LUT 4096 and 16 bit-identical to the
@@ -82,15 +87,17 @@ one line each; any failure exits non-zero:
      peak device memory, and K1 / K2 timed at
      the loopback's shape beside their bounds;
  15. the geometries K1 does not serve, at their full width, each a ~60 s
-     file decode by `minimodem-tpu-torch --rx --file` on the card (K2 and,
-     where it is the route, K3 launched; plain calls 0; stdout exact,
+     file decode by `minimodem-tpu-torch --rx --file` on the card (K5, K2
+     and, where it is the route, K3 launched; plain calls 0; stdout exact,
      stderr equal to --device cpu's, within the stated tolerance of the
      printed scores on the FFT route) and one DeviceReceiver batch of 16
      streams with K2 held against its plain version on the card's own
-     planes: uic-train (wide records, the bits_hi plane, K3), the float64
-     geometry `1200 --samplerate 24000 -M 1200 -S 2400`, 20 baud (K3
-     past K1's shared memory), 1 baud (the FFT stage 1, no ring) and 2
-     baud with --sync-byte (the dual layout, no ring);
+     planes and K5's last launch against its own, bit for bit, then the
+     batch scorer's tile split (stage 1, K5 and the plain channels timed
+     apart, K5's bound): uic-train (wide records, the bits_hi plane,
+     K3), the float64 geometry `1200 --samplerate 24000 -M 1200 -S
+     2400`, 20 baud (K3 past K1's shared memory), 1 baud (the FFT stage
+     1, no ring) and 2 baud with --sync-byte (the dual layout, no ring);
  16. streaming: the phase-4 audio read from its WAV in half-second FLOAT
      reads, as a live capture delivers it, decoded by DeviceStreamReceiver
      (segment_len 1 << 16) on the card: stdout and stderr equal to the
@@ -181,7 +188,12 @@ loopback_launches), on phase 13's other rows (rows_launches, and
 frames_launches of its frames entry), the fleet's, the cards', the
 runner's (runner_frames_launches beside), and its numbers at the
 headline buffer; phases 18, 20 and 22 require K4 launched and no plain
-synthesis call, and hold its last launch against its plain route.
+synthesis call, and hold its last launch against its plain route.  K5's
+entry (frame_channels) has its launches on uic-train's file decode
+(launches), on each geometry's file decode and batch, on the host
+engines, the float64 route, -a --engine host, the fleet and the packed
+uic-train decode, and its numbers at uic-train's tile of the batch of
+16 streams, with every geometry's and both host forms' split beside.
 """
 
 from __future__ import annotations
@@ -739,78 +751,93 @@ def k2_cases(audio, main_planes, main_total, dev) -> list:
 
 def host_engines(wav: str, text: bytes, err_device: str) -> dict:
     """The host engines on the file: in process on the card with the
-    counts set to 0 just before and read just after, then as --device
-    cuda and --device cpu subprocesses."""
-    from minimodem_tpu_torch.ops.correlate import Correlator, correlate_plain
-    from minimodem_tpu_torch.ops.fused_score import score_planes_plain
-    from minimodem_tpu_torch.ops.mega_rx import mega_rx_plain
-
+    counts set to 0 just before and read just after (K3 and K5 launched,
+    plain calls 0; K3's and K5's last launches held against their plain
+    versions), then as --device cuda and --device cpu subprocesses."""
     res = {}
-    for engine, count in (("host", "launches"),
-                          ("host-native", "batch_launches")):
+    for engine, count in (("host", "correlate"),
+                          ("host-native", "correlate_batch")):
         argv = ["--rx", "--file", wav, "1200", "--engine", engine,
                 "--device", "cuda"]
         run_cli_inprocess(argv)                        # warm-up
-        Correlator.launches = Correlator.batch_launches = 0
-        correlate_plain.calls = score_planes_plain.calls = 0
-        mega_rx_plain.calls = 0
-        t0 = time.perf_counter()
-        rc, out, err = run_cli_inprocess(argv)
-        wall_s = time.perf_counter() - t0
-        launches = getattr(Correlator, count)
-        plain = (correlate_plain.calls + score_planes_plain.calls
-                 + mega_rx_plain.calls)
+        with last_inputs() as seen:
+            counts = reset_counts()
+            t0 = time.perf_counter()
+            rc, out, err = run_cli_inprocess(argv)
+            wall_s = time.perf_counter() - t0
+            lc = read_counts(counts)
+        launches, k5, plain = lc[count], lc["frame_channels"], lc["plain"]
         if rc != 0 or out != text or err != err_device:
             fail(f"--engine {engine} in process: rc {rc}, stdout exact "
                  f"{out == text}, stderr == device engine's "
                  f"{err == err_device}\n{err}")
-        if launches < 1 or plain:
-            fail(f"--engine {engine}: K3 {count} {launches}, plain calls "
-                 f"{plain}")
+        if launches < 1 or k5 < 1 or plain:
+            fail(f"--engine {engine}: K3 {count} {launches}, K5 {k5}, "
+                 f"plain calls {plain}")
+        held = hold_last(seen)
+        del seen
+        if "frame_channels" not in held or not all(
+                r["ok"] for r in held.values()):
+            fail(f"--engine {engine}: kernels against their plain versions "
+                 f"{held}")
         rc_c, out_c, err_c = run_cli_subprocess(argv)
         rc_p, out_p, err_p = run_cli_subprocess(argv[:-1] + ["cpu"])
         ok = (rc_c == rc_p == 0 and out_c == out_p == text
               and err_c == err_p == err_device)
         phase(f"end to end --engine {engine}: in process stdout byte-exact, "
-              f"stderr == device engine's; K3 {count} {launches}, plain "
-              f"calls {plain}; subprocesses cuda/cpu stdout exact "
-              f"{out_c == text}/{out_p == text}, stderr == device engine's "
-              f"{err_c == err_device}/{err_p == err_device}")
+              f"stderr == device engine's; K3 {count} {launches}, K5 {k5}, "
+              f"plain calls {plain}; last launches against their plain "
+              f"versions: {held_line(held)}; subprocesses cuda/cpu stdout "
+              f"exact {out_c == text}/{out_p == text}, stderr == device "
+              f"engine's {err_c == err_device}/{err_p == err_device}")
         if not ok:
             fail(f"--engine {engine} subprocesses: rc {rc_c}/{rc_p}\n"
                  f"{err_c}\n{err_p}")
-        res[engine] = {"launches": launches, "wall_s": wall_s,
+        res[engine] = {"launches": launches, "k5_launches": k5,
+                       "held": held, "wall_s": wall_s,
                        "profile": profile_decode(argv)}
     return res
 
 
-def perfect_check(tmp: str) -> None:
-    """The float64 route through the host engine on the card."""
+def perfect_check(tmp: str) -> dict:
+    """The float64 route through the host engine on the card (the float64
+    chain, then K5 on a float64 correlation; the counts set to 0 just
+    before and read just after, K5's last launch held against its plain
+    version), equal to the CPU's.  -> its launches."""
     args = ["1200", "--samplerate", "24000", "-M", "1200", "-S", "2400"]
     ptext = b"".join(b"perfect line %03d\n" % i for i in range(40))
     path = os.path.join(tmp, "perfect.wav")
     rc, _, err = run_cli_subprocess(["--tx", "--file", path, *args], ptext)
     if rc != 0:
         fail(f"perfect tx: {err}")
-    runs = [run_cli_inprocess(["--rx", "--file", path, *args, "--engine",
-                               "host", "--device", d])
-            for d in ("cuda", "cpu")]
+    argv = ["--rx", "--file", path, *args, "--engine", "host", "--device"]
+    with last_inputs() as seen:
+        counts = reset_counts()
+        runs = [run_cli_inprocess(argv + ["cuda"])]
+        lc = read_counts(counts)
+    runs.append(run_cli_inprocess(argv + ["cpu"]))
+    held = hold_last(seen)
+    del seen
     rc, out, err = runs[0]
     ok = (rc == 0 and out == ptext and "confidence=inf" in err
-          and "(rate perfect)" in err and runs[0] == runs[1])
+          and "(rate perfect)" in err and runs[0] == runs[1]
+          and lc["frame_channels"] >= 1 and not lc["plain"]
+          and "frame_channels" in held
+          and all(r["ok"] for r in held.values()))
     phase(f"float64 route ({' '.join(args)} --engine host): stdout exact "
-          f"{out == ptext}, cuda == cpu {runs[0] == runs[1]}; stderr: "
-          f"{err.strip()!r}")
+          f"{out == ptext}, cuda == cpu {runs[0] == runs[1]}; launches {lc}; "
+          f"{held_line(held)}; stderr: {err.strip()!r}")
     if not ok:
         fail("the float64 host-engine decode disagrees")
+    return lc
 
 
 def autodetect_check(dev) -> dict:
     """-a on two bursts with a retune between them (the signal of
     tests/test_autodetect_device.py::test_rearm_retune): --engine host
-    (K3) and --engine device (each burst a stop-on-overflow decode through
-    K1 and K2), on the card and on the CPU, all four byte for byte.
-    -> the device engine's launches and warm wall on the card."""
+    (K3 and K5) and --engine device (each burst a stop-on-overflow decode
+    through K1 and K2), on the card and on the CPU, all four byte for
+    byte.  -> each engine's launches and warm wall on the card."""
     import numpy as np
     import torch
     from minimodem_tpu_torch.codecs import get_codec
@@ -862,21 +889,25 @@ def autodetect_check(dev) -> dict:
               f"{outs[engine, 'cuda'][1]!r}")
     if not ok:
         fail("-a disagrees between engines or between cuda and cpu")
-    if res["host"]["launches"]["correlate"] < 1:
-        fail("-a --engine host launched no K3")
+    lh = res["host"]["launches"]
+    if lh["correlate"] < 1 or lh["frame_channels"] < 1 or lh["plain"]:
+        fail(f"-a --engine host launches {lh}")
     lc = res["device"]["launches"]
     if lc["mega_rx"] < 1 or lc["fused_score"] < 1 or lc["plain"]:
         fail(f"-a --engine device launches {lc}")
-    return res["device"]
+    return res
 
 
-KERNEL_COUNTS = ("fused_score", "mega_rx", "correlate", "correlate_batch")
+KERNEL_COUNTS = ("fused_score", "mega_rx", "correlate", "correlate_batch",
+                 "frame_channels")
 
 
 def reset_counts():
     """Set every kernel's launch count and every plain version's call
     count to 0 (-> the classes and functions that hold them)."""
     from minimodem_tpu_torch.ops.correlate import Correlator, correlate_plain
+    from minimodem_tpu_torch.ops.demod import score_frame_channels
+    from minimodem_tpu_torch.ops.frame_channels import FrameChannels
     from minimodem_tpu_torch.ops.fused_score import (
         FusedScorer, score_planes_plain)
     from minimodem_tpu_torch.ops.mega_rx import MegaRx, mega_rx_plain
@@ -886,22 +917,24 @@ def reset_counts():
     FusedScorer.launches = MegaRx.launches = 0
     Correlator.launches = Correlator.batch_launches = 0
     TxSynth.launches = TxSynth.frames_launches = 0
+    FrameChannels.launches = 0
     score_planes_plain.calls = mega_rx_plain.calls = 0
-    correlate_plain.calls = 0
+    correlate_plain.calls = score_frame_channels.calls = 0
     device_synthesize.calls = device_synthesize_frames.calls = 0
-    return FusedScorer, MegaRx, Correlator, TxSynth, (
-        score_planes_plain, mega_rx_plain, correlate_plain), (
-        device_synthesize, device_synthesize_frames)
+    return FusedScorer, MegaRx, Correlator, TxSynth, FrameChannels, (
+        score_planes_plain, mega_rx_plain, correlate_plain,
+        score_frame_channels), (device_synthesize, device_synthesize_frames)
 
 
 def read_counts(counts) -> dict:
     """The launches and plain calls since reset_counts; "plain" counts
     every plain version's calls, the synthesis' ("plain_synth") among
     them."""
-    fused, mega, corr, synth, plains, synth_plains = counts
+    fused, mega, corr, synth, channels, plains, synth_plains = counts
     plain_synth = sum(p.calls for p in synth_plains)
     return {"fused_score": fused.launches, "mega_rx": mega.launches,
             "correlate": corr.launches, "correlate_batch": corr.batch_launches,
+            "frame_channels": channels.launches,
             "tx_synth": synth.launches,
             "tx_synth_frames": synth.frames_launches,
             "plain": sum(p.calls for p in plains) + plain_synth,
@@ -1010,14 +1043,16 @@ def geometry_phase(name: str, tmp: str, dev) -> dict:
     """One geometry the device engine serves since K2's wide, bits_hi and
     no-ring modes and the scorer for what K1 does not serve: a ~60 s file
     decode by `minimodem-tpu-torch --rx --file` on the card (launches
-    counted, plain calls 0; stdout exact) and on --device cpu (stderr
-    equal); then one DeviceReceiver batch of 16 streams, with K2 held
-    against its plain version on the card's own planes.  -> timings."""
+    counted: K5 and K2, K3 where it is the route; plain calls 0; stdout
+    exact) and on --device cpu (stderr equal); then one DeviceReceiver
+    batch of 16 streams, with K2 held against its plain version on the
+    card's own planes and K5's last launch against its own, and the
+    scorer's split at one tile (k5_split).  -> timings."""
     import numpy as np
     import torch
     from minimodem_tpu_torch.ops.device_rx import (
-        DeviceReceiver, _collect, _round_up_pow2, device_rx_key, geo_from_key,
-        make_score_packer_planes)
+        SCORE_TILE, DeviceReceiver, _collect, _round_up_pow2, device_rx_key,
+        geo_from_key, make_score_packer_planes, plane_names)
     from minimodem_tpu_torch.ops.mega_rx import (
         MegaRx, MegaStatics, mega_rx_plain)
 
@@ -1039,6 +1074,7 @@ def geometry_phase(name: str, tmp: str, dev) -> dict:
     k3 = launches["correlate"] + launches["correlate_batch"]
     ok = (rc == rc_p == 0 and out == out_p == text
           and stderr_close(err, err_p, fft) and launches["mega_rx"] >= 1
+          and launches["frame_channels"] >= 1
           and launches["plain"] == 0 and (k3 >= 1) == (route == "K3"))
     close = ("" if err == err_p else
              f" (scores within the FFT route's tolerance: "
@@ -1064,9 +1100,14 @@ def geometry_phase(name: str, tmp: str, dev) -> dict:
         * np.float32(0.2)
     x += noise
     rx = DeviceReceiver(cfg, device=dev)
-    counts = reset_counts()
-    events, _ = rx.run_events_batch(x, totals, 1.5, 2.3)
-    batch_launches = read_counts(counts)
+    with last_inputs() as seen:
+        counts = reset_counts()
+        events, _ = rx.run_events_batch(x, totals, 1.5, 2.3)
+        batch_launches = read_counts(counts)
+    # K5's last launch (K2 is held below on the card's planes)
+    held = hold_last({k: v for k, v in seen.items()
+                      if k == "frame_channels"})
+    del seen
     t_total = _round_up_pow2(max(totals) + cfg.nsamples_overscan + 1)
     packer, _ = make_score_packer_planes(key, t_total, "float32")
     xd = torch.zeros((b, t_total + geo.halo), dtype=torch.float32, device=dev)
@@ -1080,26 +1121,36 @@ def geometry_phase(name: str, tmp: str, dev) -> dict:
     recv_same = all(
         len(u) == len(v) and all(np.array_equal(s, t) for s, t in zip(u, v))
         for u, v in zip(events, _collect(out_k[:4], b, rx.compact)))
+    tile = min(t_total, SCORE_TILE)
     r = {"name": name, "route": route, "wall_s": wall_s,
          "audio_s": len(wav) / cfg.sample_rate, "launches": launches,
          "batch_launches": batch_launches, "planes": list(planes.shape),
+         "held": held, "tiles": -(-t_total // tile),
          "searches": int(mega_rx_plain.searches.max()),
          "score_ms": cuda_ms(lambda: packer(xd), 3),
          "k2_ms": cuda_ms(
              lambda: mega(planes, tt, (1.5, 2.3), ci, cf, True), 3)}
+    del planes, out_k
+    r["split"] = k5_split(geo, xd[:, :tile + geo.halo], tile,
+                          plane_names(geo))
     phase(f"{name} DeviceReceiver batch of {b} streams (planes "
           f"{r['planes']}, {'compact' if rx.compact else 'wide records'}): "
           f"K2 == plain on the card's planes {same}, DeviceReceiver == "
-          f"them {recv_same}; launches {batch_launches}; ring "
+          f"them {recv_same}; launches {batch_launches}; K5's last launch "
+          f"against its plain version: {held_line(held)}; ring "
           f"{'none (global reads)' if not mega.ring.stages else str(mega.ring.stages) + ' stages'}"
-          f"; score planes {r['score_ms']:.3f} ms, K2 {r['k2_ms']:.3f} ms per "
-          f"call (CUDA events; {r['searches']} searches in the longest "
-          f"stream)")
+          f"; score planes {r['score_ms']:.3f} ms ({r['tiles']} tiles), K2 "
+          f"{r['k2_ms']:.3f} ms per call (CUDA events; {r['searches']} "
+          f"searches in the longest stream); a tile: "
+          f"{k5_split_line(r['split'])}")
     if not (same and recv_same) or batch_launches["mega_rx"] < 1 or \
+            batch_launches["frame_channels"] < 1 or \
             batch_launches["plain"] or (route == "K3") != (
-                batch_launches["correlate_batch"] >= 1):
+                batch_launches["correlate_batch"] >= 1) or \
+            "frame_channels" not in held or r["split"]["words"] or \
+            not all(v["ok"] for v in held.values()):
         fail(f"{name}: the batch of {b} disagrees or missed its kernels")
-    del planes, xd, out_k
+    del xd
     torch.cuda.empty_cache()
     return r
 
@@ -1612,17 +1663,19 @@ def stream_keys(strm, live, soak, k: str, name: str) -> dict:
     }
 
 
-def host_engine_split(wav: str, device) -> str:
+def host_engine_split(wav: str, device):
     """One warm host-engine decode of the file, its wall split between
-    chunk scoring (DemodScorer.score: upload, K3, channel math and the
-    one synchronising D2H copy per chunk) and the rest (the Python state
-    machine and rendering)."""
+    chunk scoring (DemodScorer.score: upload, K3, K5 and the one
+    synchronising D2H copy per chunk) and the rest (the Python state
+    machine and rendering); then the scorer's two stages (k5_split) at
+    `score`'s one chunk row and at `score_chunks`' batch of overlapping
+    rows.  -> (the line, {form: k5_split})."""
     import numpy as np
     import torch
     from minimodem_tpu_torch.codecs import get_codec
     from minimodem_tpu_torch.config import RxOptions
     from minimodem_tpu_torch.models.modem import FskModem
-    from minimodem_tpu_torch.ops.demod import DemodScorer
+    from minimodem_tpu_torch.ops.demod import CHANNELS, DemodScorer
     from minimodem_tpu_torch.rx.engine import Receiver
     from minimodem_tpu_torch.sigio import Direction, SampleFormat, open_stream
 
@@ -1656,10 +1709,20 @@ def host_engine_split(wav: str, device) -> str:
         wall = time.perf_counter() - t0
     finally:
         DemodScorer.score = orig
+    sc = DemodScorer(cfg, device=device)
+    t_len, halo = sc.chunk_len, sc.geo.halo
+    n_chunks = -(-len(samples) // t_len)
+    flat = np.zeros(n_chunks * t_len + halo, np.float32)
+    flat[:len(samples)] = samples.astype(np.float32) / np.float32(32768.0)
+    rows = torch.from_numpy(flat).to(device).unfold(0, t_len + halo, t_len)
+    splits = {f"score [1, {t_len + halo}]": k5_split(
+                  sc.geo, rows[:1], t_len, CHANNELS),
+              f"score_chunks [{n_chunks}, {t_len + halo}]": k5_split(
+                  sc.geo, rows, t_len, CHANNELS)}
     return (f"wall {1e3 * wall:.2f} ms (after the WAV read): chunk scoring "
             f"{1e3 * spent[1]:.2f} ms in {spent[0]} calls "
             f"({100 * spent[1] / wall:.1f}%), Python state machine and "
-            f"render {1e3 * (wall - spent[1]):.2f} ms")
+            f"render {1e3 * (wall - spent[1]):.2f} ms"), splits
 
 
 def turns_atol(seg_len: int, cfg) -> float:
@@ -2426,14 +2489,15 @@ def same_events(a, b) -> bool:
 @contextlib.contextmanager
 def last_inputs():
     """While the block runs, record the arguments of each kernel's last
-    launch on the card, by wrapper (K1, K2, K3 one-row / rows, and K4's
-    flat and frames entries), so that each kernel can be held against its
+    launch on the card, by wrapper (K1, K2, K3 one-row / rows, K4's flat
+    and frames entries, K5), so that each kernel can be held against its
     plain version at the shapes the path gave it once the path's counts
     are read (hold_last).
     -> {kernel name: (wrapper, its bound arguments)}."""
     import inspect
 
     from minimodem_tpu_torch.ops.correlate import Correlator
+    from minimodem_tpu_torch.ops.frame_channels import FrameChannels
     from minimodem_tpu_torch.ops.fused_score import FusedScorer
     from minimodem_tpu_torch.ops.mega_rx import MegaRx
     from minimodem_tpu_torch.ops.tx_device import TxSynth
@@ -2459,6 +2523,7 @@ def last_inputs():
                                 else "correlate_batch"))
     wrap(TxSynth, lambda x: "tx_synth", "bits")
     wrap(TxSynth, lambda x: "tx_synth_frames", "frames")
+    wrap(FrameChannels, lambda x: "frame_channels")
     try:
         yield seen
     finally:
@@ -2471,7 +2536,8 @@ def hold_last(seen) -> dict:
     inputs and held against its plain version on the same inputs on the
     card: K1 and K3 bit for bit (bit-different words; K3's max_abs_err),
     K2's events, bytes and carry identical (k2_compare, the plain version
-    on a CPU copy), K4 as hold_tx_synth says.  Call it after the path's
+    on a CPU copy), K4 as hold_tx_synth says, K5 as hold_frame_channels
+    says.  Call it after the path's
     counts are read: these launches are not the path's.
     -> {name: {"shape", "ok", ...}}."""
     import numpy as np
@@ -2483,6 +2549,9 @@ def hold_last(seen) -> dict:
     for name, (w, a) in sorted(seen.items()):
         if name.startswith("tx_synth"):
             out[name] = hold_tx_synth(name, w, a)
+            continue
+        if name == "frame_channels":
+            out[name] = hold_frame_channels(w, a)
             continue
         if name == "mega_rx":
             planes = a["planes"]
@@ -2537,6 +2606,130 @@ def hold_tx_synth(name: str, w, a: dict) -> dict:
     return {"shape": f"{list(x.shape)} -> [{x.shape[0]}, {width}]",
             "words": words, "max_abs_err": err,
             "ok": words == 0 if atol == 0.0 else err <= atol}
+
+
+def k5_against_plain(w, corr, n: int, rows) -> dict:
+    """K5 (FrameChannels w) on corr against the plain
+    score_frame_channels on the same correlation on the card: every word
+    of the rows, NaN and inf included (bit-different words; max_abs_err
+    over the finite float channels; the frame bits' marks, for the
+    bound)."""
+    import torch
+    from minimodem_tpu_torch.ops.demod import score_frame_channels
+
+    out = torch.full((corr.shape[0], len(rows), n), -7, dtype=torch.int32,
+                     device=corr.device)
+    w(corr, n, out, rows)
+    ch = score_frame_channels(corr, w.geo, n)
+    p = torch.stack([ch[r].view(torch.int32) for r in rows], dim=1)
+    words = int(torch.count_nonzero(out != p))
+    fl = [i for i, r in enumerate(rows) if not r.startswith("bits")]
+    kf, pf = out[:, fl].view(torch.float32), p[:, fl].view(torch.float32)
+    fin = kf.isfinite() & pf.isfinite()
+    err = float((kf[fin].double() - pf[fin].double()).abs().max()) \
+        if bool(fin.any()) else 0.0
+    marks = popcount_sum(ch["bits_lo"]) + popcount_sum(ch["bits_hi"])
+    del out, ch, p, kf, pf, fin
+    return {"shape": f"{list(corr.shape)} -> [{corr.shape[0]}, "
+                     f"{len(rows)}, {n}]",
+            "words": words, "max_abs_err": err, "marks": marks,
+            "ok": words == 0}
+
+
+def hold_frame_channels(w, a: dict) -> dict:
+    """K5 launched again on a path's recorded correlation against the
+    plain score_frame_channels (k5_against_plain)."""
+    import torch
+    from minimodem_tpu_torch.ops.demod import CHANNELS
+
+    r = k5_against_plain(w, a["corr"], a["n"], a.get("rows", CHANNELS))
+    del r["marks"]
+    torch.cuda.empty_cache()
+    return r
+
+
+def popcount_sum(t) -> int:
+    """The set bits of an int32 tensor's words, summed."""
+    import torch
+
+    v = t.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return int((((v * 0x01010101) & 0xFFFFFFFF) >> 24).sum())
+
+
+def k5_bound(geo, batch: int, n: int, n_rows: int, elem: int,
+             marks: int):
+    """K5's least time for one call: the correlation read once (4 rows of
+    n + max_begin offsets of elem bytes) and the rows written once,
+    against its float operations: 10 an offset for the magnitudes (two
+    squares, a sum, a square root and a scaling a band), 5 a tap and
+    offset for the comb sums and the divergence (two sums; a difference,
+    a division and a sum), one a mark, 10 an offset for the averages,
+    the SNR, conf and ampl.  -> (ms, what sets it, bytes, operations)."""
+    s_cnt = n + geo.max_begin
+    n_bytes = batch * (4 * s_cnt * elem + 4 * n_rows * n)
+    flop = (10 * batch * s_cnt + (5 * geo.n_bits + 10) * batch * n
+            + marks)
+    t, by = bound(n_bytes, flop)
+    return t, by, n_bytes, flop
+
+
+K5_KERNELS = ("magnitudes_kernel", "channels_kernel")
+
+
+def k5_split(geo, x, t_len: int, rows) -> dict:
+    """One scorer call's two stages at its shape, on the card: stage 1
+    (correlator_for, the route the geometry takes) on x [B, t_len + halo]
+    and K5 on its correlation into `rows`, each timed (CUDA events a
+    call; K5 also queued behind a sleep and alone by torch.profiler),
+    beside the plain channels on the same correlation (the eager PyTorch
+    chain K5 replaces); K5 held against it bit for bit; K5's bound."""
+    import numpy as np
+    import torch
+    from minimodem_tpu_torch.ops.demod import (
+        correlator_for, make_basis, score_frame_channels)
+    from minimodem_tpu_torch.ops.frame_channels import FrameChannels
+
+    stage1 = correlator_for(
+        geo, make_basis(geo, np.float64 if geo.use_f64 else np.float32))
+    s_len = t_len + geo.max_begin
+    corr = stage1(x, s_len)
+    fc = FrameChannels(geo)
+    r = k5_against_plain(fc, corr, t_len, rows)
+    out = torch.empty((x.shape[0], len(rows), t_len), dtype=torch.int32,
+                      device=x.device)
+
+    def k5():
+        fc(corr, t_len, out, rows)
+
+    r["stage1_ms"] = cuda_ms(lambda: stage1(x, s_len), 5)
+    r["ms"] = cuda_ms(k5, 10)
+    r["queued_ms"] = queued_ms(k5, 10)
+    # each kernel's mean over the launches the profiler recorded (a window
+    # can miss some records)
+    alone = [kernel_device_ms(k5, 10, k) for k in K5_KERNELS]
+    r["kernel_ms"] = None if None in alone else sum(alone)
+    r["plain_ms"] = cuda_ms(lambda: score_frame_channels(corr, geo, t_len),
+                            2)
+    r["bound"] = k5_bound(geo, x.shape[0], t_len, len(rows),
+                          corr.element_size(), r.pop("marks"))
+    del corr, out
+    torch.cuda.empty_cache()
+    return r
+
+
+def k5_split_line(r: dict) -> str:
+    """k5_split's numbers, one clause."""
+    t, by, n_bytes, flop = r["bound"]
+    return (f"stage 1 {r['stage1_ms']:.4f} ms, K5 {r['ms']:.4f} ms per "
+            f"call ({fmt_ms(r['kernel_ms'])} alone, its two kernels by "
+            f"torch.profiler; {r['queued_ms']:.4f} ms queued behind a "
+            f"sleep), the plain channels "
+            f"{r['plain_ms']:.3f} ms; K5 bound {t:.4f} ms ({by}: "
+            f"{n_bytes / 1e6:.1f} MB, {flop / 1e6:.1f} MFLOP); K5 == plain "
+            f"at {r['shape']}: {r['words']} bit-different words")
 
 
 def held_line(held: dict) -> str:
@@ -3519,9 +3712,10 @@ def main() -> int:
             if r["words"]:
                 fail(f"K3 {r['name']} disagrees with its plain version")
         host = host_engines(wav, text, err_cuda)
-        host_split_line = host_engine_split(wav, dev)
-        perfect_check(tmp)
-        auto = autodetect_check(dev)
+        host_split_line, host_k5 = host_engine_split(wav, dev)
+        perfect = perfect_check(tmp)
+        auto_all = autodetect_check(dev)
+        auto = auto_all["device"]
 
         # ---- 15. the geometries K1 does not serve, and K2's new modes ----
         geo_rows = [geometry_phase(g, tmp, dev) for g in GEOMETRIES]
@@ -3593,12 +3787,22 @@ def main() -> int:
               f"(torch.profiler): {r['profile']} ({card})")
     phase(f"host engine split of one warm decode: {host_split_line} "
           f"({card})")
+    for form, r in host_k5.items():
+        phase(f"time the host scorer's stages at {form} -> 131072 offsets: "
+              f"{k5_split_line(r)} ({card})")
+        if r["words"]:
+            fail(f"K5 at the host scorer's {form} disagrees with its plain "
+                 "version")
     for r in geo_rows:
+        sp = r["split"]
         phase(f"time {r['name']} (stage 1 {r['route']}): file decode warm "
               f"wall {r['wall_s'] * 1e3:.1f} ms for {r['audio_s']:.1f} s "
               f"audio = {r['audio_s'] / r['wall_s']:.1f} audio s per wall s; "
               f"batch of 16 {r['planes']}: score planes {r['score_ms']:.3f} "
-              f"ms per call, K2 {r['k2_ms']:.3f} ms per call ({card})")
+              f"ms per call in {r['tiles']} tiles, a tile stage 1 "
+              f"{sp['stage1_ms']:.4f} ms + K5 {sp['ms']:.4f} ms (the plain "
+              f"channels {sp['plain_ms']:.3f} ms), K2 {r['k2_ms']:.3f} ms per "
+              f"call ({card})")
     phase(f"time -a --engine device, retune between bursts: warm wall "
           f"{auto['wall_s'] * 1e3:.1f} ms ({card})")
     idle = 100 - 100 * strm["busy_ms"] / strm["wall_prof_ms"]
@@ -3782,7 +3986,8 @@ def main() -> int:
           f"to 0 before the two fleet rows and sharded_decode_step: K1 "
           f"{fl['fused_score']}, K2 {fl['mega_rx']}, K3 one-row "
           f"{fl['correlate']}, K3 rows {fl['correlate_batch']}, K4 "
-          f"{fl['tx_synth']}, plain calls {fl['plain']} (synthesis "
+          f"{fl['tx_synth']}, K5 {fl['frame_channels']}, plain calls "
+          f"{fl['plain']} (synthesis "
           f"{fl['plain_synth']}); sharded_decode_step [{STEP_BATCH}, {STEP_LEN}] "
           f"and [1, {STEP_LEN}] (walls {fleet['step_s'][STEP_BATCH]:.3f} "
           f"and {fleet['step_s'][1]:.3f} s, the first call's scorer "
@@ -3862,6 +4067,14 @@ def main() -> int:
           f"{K2_STEP_NS_ESTIMATE:.0f} ns) ({card})")
     src = "minimodem_tpu_torch/csrc/"
     k3a, k3b = k3["correlate"], k3["correlate_batch"]
+    # K5: its numbers at uic-train's tile (the batch of 16 streams), its
+    # launches on uic-train's file decode; every check it was held to
+    k5_uic = next(r for r in geo_rows if r["name"] == "uic-train")
+    k5_tile = k5_uic["split"]
+    k5_checks = ([r["split"] for r in geo_rows] + list(host_k5.values())
+                 + [r["held"]["frame_channels"] for r in geo_rows]
+                 + [r["held"]["frame_channels"] for r in host.values()]
+                 + [fleet["held"]["frame_channels"]])
     print(json.dumps({"kernels": [
         {"name": "fused_score", "route": "cuda",
          "source": src + "fused_score.cu",
@@ -3979,6 +4192,48 @@ def main() -> int:
          "cards_launches": [r["tx_synth"] for r in cards["launches"]],
          "runner_launches": rl["tx_synth"],
          "runner_frames_launches": rl["tx_synth_frames"]},
+        {"name": "frame_channels", "route": "cuda",
+         "source": src + "frame_channels.cu",
+         "replaces": "minimodem_tpu/ops/demod.py:215 traced into "
+                     "minimodem_tpu/ops/demod.py:299-325 and "
+                     "minimodem_tpu/ops/device_rx.py:244-309 (jitted at "
+                     ":998; an XLA fusion, no pallas_call)",
+         "launches": k5_uic["launches"]["frame_channels"],
+         "max_abs_err": max(r["max_abs_err"] for r in k5_checks),
+         "ms": k5_tile["ms"], "kernel_ms": k5_tile["kernel_ms"],
+         "queued_ms": k5_tile["queued_ms"], "plain_ms": k5_tile["plain_ms"],
+         "bound_ms": k5_tile["bound"][0], "bound_by": k5_tile["bound"][1],
+         "library_ms": None, "shape": k5_tile["shape"],
+         "stage1_ms": k5_tile["stage1_ms"],
+         "geometry_launches": {r["name"]: r["launches"]["frame_channels"]
+                               for r in geo_rows},
+         "geometry_batch_launches": {
+             r["name"]: r["batch_launches"]["frame_channels"]
+             for r in geo_rows},
+         "geometry_tiles": {r["name"]: {
+             "shape": r["split"]["shape"], "tiles": r["tiles"],
+             "stage1_ms": r["split"]["stage1_ms"], "ms": r["split"]["ms"],
+             "kernel_ms": r["split"]["kernel_ms"],
+             "queued_ms": r["split"]["queued_ms"],
+             "plain_ms": r["split"]["plain_ms"],
+             "bound_ms": r["split"]["bound"][0],
+             "bound_by": r["split"]["bound"][1],
+             "score_planes_ms": r["score_ms"]} for r in geo_rows},
+         "host_launches": {e: r["k5_launches"] for e, r in host.items()},
+         "host_forms": {f: {
+             "shape": r["shape"], "stage1_ms": r["stage1_ms"],
+             "ms": r["ms"], "kernel_ms": r["kernel_ms"],
+             "queued_ms": r["queued_ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+             for f, r in host_k5.items()},
+         "perfect_launches": perfect["frame_channels"],
+         "autodetect_host_launches":
+             auto_all["host"]["launches"]["frame_channels"],
+         "fleet_launches": fl["frame_channels"],
+         "wirepack_uic_launches": wpk["uic_launches"]["frame_channels"],
+         "runner_launches": rl["frame_channels"],
+         "curve_launches": curve_launches("frame_channels"),
+         "selfcheck_launches": sl["frame_channels"]},
     ]}), flush=True)
     phase(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

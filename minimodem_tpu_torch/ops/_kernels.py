@@ -10,6 +10,10 @@ plain C interface:
                                         (ops/tx_device.py TxSynth);
                         mm_tx_sin_check its sine against CUDA's
                                         (ops/tx_device.py sin_check)
+    K5  frame_channels.cu
+                        mm_frame_channels
+                                        the frame channels
+                                        (ops/frame_channels.py)
 
 At first use each source is compiled by its own nvcc, all started
 together,
@@ -24,7 +28,7 @@ register-blocked correlation of K1 and K3) and the flags, and loaded with
 ctypes.  There is no --use_fast_math: the scorer
 relies on IEEE x/0 = inf, 0/0 = nan and correctly rounded sqrtf and
 division, and -fmad=false keeps every multiply-add two rounded ops, as in
-the plain PyTorch versions (K4 spells each rounding out as an _rn
+the plain PyTorch versions (K4 and K5 spell each rounding out as an _rn
 intrinsic besides).  Every C entry returns cudaGetLastError();
 check() raises on anything but 0.  nvcc is found through CUDA_HOME,
 /usr/local/cuda or PATH.
@@ -54,6 +58,7 @@ build_seconds = None     # wall time of the last nvcc build, None if cached
 
 _P, _I, _LL, _U, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_uint, ctypes.c_float, ctypes.c_double)
+_ULL = ctypes.c_ulonglong
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "mm_fused_score": [_P, _LL, _I, _I, _P, _I, _P, _I, _I, _F, _U, _U, _U,
@@ -66,6 +71,8 @@ _SIGNATURES = {
                            _F, _F, _I, _I, _D, _F, _I, _I, _I, _I, _U, _I,
                            _U, _I, _P, _P, _P, _I, _P],
     "mm_tx_sin_check": [_U, _U, _U, _P, _P, _P],
+    "mm_frame_channels": [_P, _I, _LL, _LL, _I, _I, _P, _I, _I, _F, _ULL,
+                          _ULL, _ULL, _ULL, _IP, _P, _P, _LL, _LL, _I, _P],
 }
 
 

@@ -17,9 +17,11 @@ src/fsk.c:117-174 bit analysis, :178-446 frame analysis):
       frame start, from shifted slices of the pass-1 planes.
 
 `correlate` and `score_frame_channels` are the plain version of the fused
-CUDA scorer (ops/fused_score.py, csrc/fused_score.cu) and, with the
-stage-1 correlation kernel (ops/correlate.py, csrc/correlate.cu), the
-host engines' chunked scorer `DemodScorer`: every op is one
+CUDA scorer (ops/fused_score.py, csrc/fused_score.cu);
+`score_frame_channels` is also the plain version of the frame-channel
+kernel K5 (ops/frame_channels.py, csrc/frame_channels.cu), which the host
+engines' chunked scorer `DemodScorer` runs after the stage-1 correlation
+kernel (ops/correlate.py, csrc/correlate.cu).  Every op is one
 IEEE-rounded multiply, add, divide or sqrt, and every sum runs in
 ascending tap order, so the kernel reproduces them bit for bit.  The
 correlation is the float32 fused-multiply-add chain that XLA compiles the
@@ -312,8 +314,10 @@ def score_frame_channels(corr: torch.Tensor, geo: DemodGeometry,
     float64 geometries.  Returns a dict of [..., t_len] tensors:
     conf_data, conf_sync, ampl_data, ampl_sync (float32) and bits_lo,
     bits_hi (int32 holding the uint32 bit patterns, frame bits packed
-    LSB-first, reference: src/fsk.c:439-441).
+    LSB-first, reference: src/fsk.c:439-441).  The plain version of K5
+    (ops/frame_channels.py, csrc/frame_channels.cu) and part of K1's.
     """
+    score_frame_channels.calls += 1
     eps = float(F32_EPSILON)
     scal = float(np.float32(geo.magscalar))
     c = corr
@@ -400,6 +404,9 @@ def score_frame_channels(corr: torch.Tensor, geo: DemodGeometry,
     }
 
 
+score_frame_channels.calls = 0
+
+
 # ======================================================================
 # the host engines' chunked scorer
 # ======================================================================
@@ -417,16 +424,22 @@ def _build_score_fn(geo: DemodGeometry, t_len: int, device: str):
             `device` if they lie elsewhere
     Output: [B, 6, t_len] int32 on `device`, the CHANNELS in order (floats
             bit-cast), so one copy brings a batch of chunks to the host.
+
+    Stage 1 by correlator_for, then the channels by K5
+    (ops/frame_channels.py) straight into the output.
     """
+    from .frame_channels import FrameChannels
+
     stage1 = correlator_for(
         geo, make_basis(geo, np.float64 if geo.use_f64 else np.float32))
+    channels = FrameChannels(geo)
     s_len = t_len + geo.max_begin  # offsets where bit windows may start
 
     def score(x: torch.Tensor) -> torch.Tensor:
         x = x.to(device)
-        ch = score_frame_channels(stage1(x, s_len), geo, t_len)
-        return torch.stack([ch[k].view(torch.int32) for k in CHANNELS],
-                           dim=1)
+        out = torch.empty((x.shape[0], len(CHANNELS), t_len),
+                          dtype=torch.int32, device=x.device)
+        return channels(stage1(x, s_len), t_len, out)
 
     return score
 

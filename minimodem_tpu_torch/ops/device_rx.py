@@ -10,7 +10,8 @@ receive pipeline on the device:
   score  : per-offset score planes, by geometry alone: K1, the fused
            scorer (ops/fused_score.py), where it serves the geometry, else
            make_score_packer (stage 1 through K3, the FFT or the float64
-           chain, then the frame channels)
+           chain, then the frame channels through K5,
+           ops/frame_channels.py)
   K2     : the carrier state machine over the planes -> events, bytes and
            the streaming carry (ops/mega_rx.py), in compact mode (data
            bytes, carrier transitions) or with wide records (one per
@@ -261,16 +262,18 @@ def make_score_packer(cfg_key, t_total: int, input_dtype: str):
     (minimodem_tpu/ops/device_rx.py:244-309): stage 1 by the route the
     geometry needs (ops/demod.py correlator_for: K3 for float32 filters of
     up to 4096 taps, the FFT beyond, the float64 chain for float64
-    geometries), then the frame channels (score_frame_channels, PyTorch
-    ops as in the JAX package, whose channel math is XLA code outside any
-    kernel).  Scores tiles of min(t_total, SCORE_TILE) offsets, so the
-    per-bit planes exist only at tile size; a ragged last tile is scored
-    over zero padding and cut."""
-    from .demod import correlator_for, make_basis, score_frame_channels
+    geometries), then the frame channels by K5 (ops/frame_channels.py)
+    straight into the tile's columns of the planes.  Scores tiles of
+    min(t_total, SCORE_TILE) offsets, so the correlation exists only at
+    tile size; a ragged last tile is scored over zero padding, only its
+    first t_total - t0 offsets."""
+    from .demod import correlator_for, make_basis
+    from .frame_channels import FrameChannels
 
     geo = geo_from_key(cfg_key)
     stage1 = correlator_for(
         geo, make_basis(geo, np.float64 if geo.use_f64 else np.float32))
+    channels = FrameChannels(geo)
     tile = min(t_total, SCORE_TILE)
     n_tiles = -(-t_total // tile)
     rows = plane_names(geo)
@@ -287,10 +290,7 @@ def make_score_packer(cfg_key, t_total: int, input_dtype: str):
             t0 = k * tile
             corr = stage1(x[:, t0:t0 + tile + geo.halo],
                           tile + geo.max_begin)
-            ch = score_frame_channels(corr, geo, tile)
-            n = min(tile, t_total - t0)
-            for r, name in enumerate(rows):
-                out[:, r, t0:t0 + n] = ch[name][:, :n].view(torch.int32)
+            channels(corr, min(tile, t_total - t0), out, rows, t0)
         return out
 
     return score_planes

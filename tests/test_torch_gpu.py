@@ -5,12 +5,13 @@ only torch and the port (no jax), so it runs on the GPU machine as is:
 
     python -m pytest tests/test_torch_gpu.py -q
 
-Tolerances: K1's planes and K3's correlations are compared bit for bit
-(the kernel and the plain version do the same IEEE-rounded ops in the
-same order); K2's events, bytes and carry are compared exactly; K4's
-flat-schedule audio bit for bit, its frame-schedule audio within
-_turns_atol (a float64 prefix summed in the CPU's order, where the plain
-version on the card takes CUDA's parallel cumsum).
+Tolerances: K1's planes, K3's correlations and K5's channels are
+compared bit for bit (the kernel and the plain version do the same
+IEEE-rounded ops in the same order); K2's events, bytes and carry are
+compared exactly; K4's flat-schedule audio bit for bit, its
+frame-schedule audio within _turns_atol (a float64 prefix summed in the
+CPU's order, where the plain version on the card takes CUDA's parallel
+cumsum).
 """
 
 import io
@@ -430,6 +431,166 @@ def test_score_packer_cuda_equals_cpu(cuda, case):
                                    rtol=5e-4, atol=1e-4)
     else:
         np.testing.assert_array_equal(got, ref)
+
+
+def _k5_geo(name):
+    """The port's geometry of a K5 case (the geometries K1 does not serve,
+    and Bell-202 for the host engines)."""
+    from minimodem_tpu_torch.models.presets import bell202, bell_like, uic
+    from minimodem_tpu_torch.ops.demod import geometry_from_config
+    from minimodem_tpu_torch.utils.cfloat import f32
+
+    cfg = {"uic-train": lambda: uic("train").cfg,
+           "float64": lambda: bell_like(1200, 24000, mark_f=f32(1200),
+                                        space_f=f32(2400)).cfg,
+           "20 baud": lambda: bell_like(20, 48000).cfg,
+           "1 baud": lambda: bell_like(1, 48000).cfg,
+           "2 baud dual": lambda: bell_like(
+               2, 48000, do_rx_sync=True, do_tx_sync_bytes=2,
+               sync_byte=0xAB).cfg,
+           "1200": lambda: bell202().cfg}[name]()
+    return cfg, geometry_from_config(cfg)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "row_stride",
+                                    "column_stride"])
+@pytest.mark.parametrize("name", ["uic-train", "float64", "20 baud",
+                                  "1 baud", "2 baud dual", "1200"])
+def test_frame_channels_kernel_equals_plain(cuda, name, layout):
+    """K5 on the card against the plain score_frame_channels on the card,
+    every word of the output bit for bit (NaN and inf included): seeded
+    correlations of a data frame, all zeros, mark == space ties, a sync
+    frame with sub-FLT_EPSILON noise, a per-offset mix of those, and the
+    data frame with NaN and inf correlations (tests/
+    test_torch_frame_channels.py _corr), written at a column offset t0
+    into the device packer's plane rows and into the host scorer's
+    CHANNELS rows, n ragged (not a multiple of the kernel's 256
+    threads); the float64 geometry's correlation in float64; uic-train's
+    47 frame bits (bits_hi).  `row_stride`: the correlation a slice of
+    wider rows, as the FFT route hands it over; `column_stride`: every
+    other column of a wider tensor (the wrapper's copy)."""
+    from minimodem_tpu_torch.ops.demod import CHANNELS, score_frame_channels
+    from minimodem_tpu_torch.ops.device_rx import plane_names
+    from minimodem_tpu_torch.ops.frame_channels import FrameChannels
+
+    from .test_torch_frame_channels import _corr
+
+    _, geo = _k5_geo(name)
+    n, t0 = 1000 - 3, 37
+    c = torch.from_numpy(_corr(geo, n + 5, seed=15, special=True)).to(cuda)
+    if layout == "row_stride":
+        wide = torch.full(c.shape[:2] + (c.shape[2] + 41,), float("nan"),
+                          dtype=c.dtype, device=cuda)
+        wide[..., :c.shape[2]] = c
+        c = wide[..., :c.shape[2]]
+        assert not c.is_contiguous() and c.stride(2) == 1
+    elif layout == "column_stride":
+        wide = torch.zeros(c.shape[:2] + (2 * c.shape[2],), dtype=c.dtype,
+                           device=cuda)
+        wide[..., ::2] = c
+        c = wide[..., ::2]
+        assert c.stride(2) == 2
+    assert c.dtype == (torch.float64 if geo.use_f64 else torch.float32)
+    fc = FrameChannels(geo)
+    ref = score_frame_channels(c, geo, n)
+    for rows in (plane_names(geo), CHANNELS):
+        out = torch.full((c.shape[0], len(rows), t0 + n + 9), -7,
+                         dtype=torch.int32, device=cuda)
+        want = out.clone()
+        for r, k in enumerate(rows):
+            want[:, r, t0:t0 + n] = ref[k].view(torch.int32)
+        launches, calls = FrameChannels.launches, score_frame_channels.calls
+        fc(c, n, out, rows, t0)
+        torch.cuda.synchronize()
+        assert FrameChannels.launches == launches + 1
+        assert score_frame_channels.calls == calls
+        np.testing.assert_array_equal(out.cpu().numpy(), want.cpu().numpy())
+    if name == "uic-train":
+        assert geo.n_bits == 47 and bool((ref["bits_hi"] != 0).any())
+    assert bool(ref["conf_data"].isnan().any())
+
+
+@pytest.mark.parametrize("case", ["uic", "float64", "1baud"])
+def test_score_packer_launches_frame_channels(cuda, monkeypatch, case):
+    """make_score_packer on the card scores every tile through K5 (the
+    tile cut to 4096 offsets: three tiles, the last ragged) and calls no
+    plain version; its planes equal the plain chain's on the card (stage
+    1, then score_frame_channels), bit for bit."""
+    from minimodem_tpu_torch.ops import device_rx
+    from minimodem_tpu_torch.ops.demod import (
+        correlator_for, make_basis, score_frame_channels)
+
+    cfg, _ = _k5_geo({"uic": "uic-train", "float64": "float64",
+                      "1baud": "1 baud"}[case])
+    key = device_rx.device_rx_key(cfg)
+    geo = device_rx.geo_from_key(key)
+    tile, t_total = 4096, 3 * 4096 - 700
+    monkeypatch.setattr(device_rx, "SCORE_TILE", tile)
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy((rng.random((3, t_total + geo.halo),
+                                     dtype=np.float32) - np.float32(0.5))
+                         * np.float32(0.6)).to(cuda)
+    before = _counts()
+    got = device_rx.make_score_packer(key, t_total, "float32")(x)
+    after = _counts()
+    assert after["k5"] == before["k5"] + 3
+    assert after["plain"] == before["plain"]
+    stage1 = correlator_for(
+        geo, make_basis(geo, np.float64 if geo.use_f64 else np.float32))
+    xp = torch.nn.functional.pad(x, (0, 3 * tile + geo.halo - x.shape[1]))
+    rows = device_rx.plane_names(geo)
+    for k in range(3):
+        t0 = k * tile
+        n = min(tile, t_total - t0)
+        ch = score_frame_channels(
+            stage1(xp[:, t0:t0 + tile + geo.halo], tile + geo.max_begin),
+            geo, tile)
+        want = torch.stack([ch[r][:, :n].view(torch.int32) for r in rows], 1)
+        np.testing.assert_array_equal(got[:, :, t0:t0 + n].cpu().numpy(),
+                                      want.cpu().numpy())
+
+
+@pytest.mark.parametrize("mode", ["1200", "perfect"])
+def test_score_chunks_equals_score_on_card(cuda, monkeypatch, mode):
+    """DemodScorer on the card: score_chunks (batched overlapping chunk
+    rows, K3b then K5) bit-identical with score() chunk by chunk (K3a
+    then K5), across batch boundaries and the zero-padded tail, with K5
+    launched once a batch and once a chunk and no plain version called;
+    the float64 geometry (the float64 chain, then K5 on a float64
+    correlation) as well."""
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.models.presets import bell_like
+    from minimodem_tpu_torch.ops.demod import DemodScorer
+    from minimodem_tpu_torch.utils.cfloat import f32
+
+    m = _modem("1200")
+    if mode == "perfect":
+        m = FskModem("1200", sample_rate=24000, device="cpu")
+        m.preset = bell_like(1200, 24000, mark_f=f32(1200),
+                             space_f=f32(2400))
+        m.cfg = m.preset.cfg
+    cfg = m.cfg
+    rng = np.random.default_rng(22)
+    wav = m.modulate(rng.integers(32, 127, size=45, dtype=np.uint8)
+                     .tobytes())
+    wav = (wav + (rng.random(wav.size, dtype=np.float32)
+                  - np.float32(0.5)) * np.float32(0.6)).astype(np.float32)
+    sc = DemodScorer(cfg, chunk_len=2048 if mode == "perfect" else 4096,
+                     device=cuda)
+    monkeypatch.setattr(DemodScorer, "BATCH", 2)
+    n_chunks = -(-len(wav) // sc.chunk_len)
+    assert n_chunks >= 5 and n_chunks % 2 == 1
+    before = _counts()
+    allc = sc.score_chunks(wav)
+    ones = [sc.score(wav[i * sc.chunk_len:]) for i in range(n_chunks)]
+    after = _counts()
+    assert after["k5"] == before["k5"] + (n_chunks + 1) // 2 + n_chunks
+    assert after["plain"] == before["plain"]
+    for i, one in enumerate(ones):
+        for k in one:
+            np.testing.assert_array_equal(
+                allc[k][i * sc.chunk_len:(i + 1) * sc.chunk_len].view(
+                    np.uint32), one[k].view(np.uint32), err_msg=k)
 
 
 def test_pipelined_cuda_equals_cpu(cuda):
@@ -1112,10 +1273,14 @@ def _counts():
                                                      score_planes_plain)
     from minimodem_tpu_torch.ops.mega_rx import MegaRx, mega_rx_plain
 
+    from minimodem_tpu_torch.ops.demod import score_frame_channels
+    from minimodem_tpu_torch.ops.frame_channels import FrameChannels
+
     return {"k1": FusedScorer.launches, "k2": MegaRx.launches,
             "k3": Correlator.launches + Correlator.batch_launches,
+            "k5": FrameChannels.launches,
             "plain": score_planes_plain.calls + mega_rx_plain.calls
-            + correlate_plain.calls}
+            + correlate_plain.calls + score_frame_channels.calls}
 
 
 @pytest.mark.parametrize("enc", [None, "ulaw"])
@@ -1187,6 +1352,7 @@ def test_sharded_step_world1_equals_score_fn(world1, batch):
     out = sharded_decode_step(cfg, world1, x, t_len)
     after = _counts()
     assert after["k3"] > before["k3"] and after["plain"] == before["plain"]
+    assert after["k5"] > before["k5"]
     geo = geometry_from_config(cfg)
     xs = np.zeros((batch, t_len + geo.halo), np.float32)
     xs[:, :t_len] = x
