@@ -337,6 +337,21 @@ def kernel_device_ms(fn, reps: int, kernel: str):
     return None
 
 
+def device_rows(prof) -> list:
+    """prof.key_averages() rows of device kernels, copies and sets with
+    device time.  The device-side rows of record_function ranges (the
+    program's "mm." spans, `is_user_annotation`) are left out, as torch's
+    own table leaves them: each lasts as long as the kernels it encloses,
+    which have rows of their own."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and getattr(e, "self_device_time_total", 0) > 0]
+
+
 def device_ms_per_call(fn, reps: int):
     """(mean device time, device kernels and copies launched) per call of
     fn() over reps calls, every kernel and copy summed (torch.profiler);
@@ -351,10 +366,7 @@ def device_ms_per_call(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None)
-            == torch.autograd.DeviceType.CUDA
-            and getattr(e, "self_device_time_total", 0) > 0]
+    rows = device_rows(prof)
     if not rows:
         return None, None
     us = sum(e.self_device_time_total for e in rows)
@@ -403,14 +415,8 @@ def profile_decode(argv) -> str:
         run_cli_inprocess(argv)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", 0)
-        if us > 0:
-            rows.append((us / 1e3, e.key, e.count))
-    rows.sort(reverse=True)
+    rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
+                   for e in device_rows(prof)), reverse=True)
     busy = sum(r[0] for r in rows)
     if not busy:
         return f"wall {wall_ms:.2f} ms, device time not measured"
@@ -1371,10 +1377,7 @@ def streaming_phase(wav: str, text: bytes, err_cpu: str, dev) -> dict:
         t0 = time.perf_counter()
         decode(dev)
         wall_prof = time.perf_counter() - t0
-    busy = sum(getattr(e, "self_device_time_total", 0)
-               for e in prof.key_averages()
-               if getattr(e, "device_type", None)
-               == torch.autograd.DeviceType.CUDA) / 1e6
+    busy = sum(e.self_device_time_total for e in device_rows(prof)) / 1e6
 
     # K1 and K2 at one non-final segment: [1, t_total + halo]
     key = device_rx_key(cfg)
@@ -2423,13 +2426,8 @@ def stage_split(lb, scheds) -> dict:
         split = {name: 0.0 for name, _ in STAGES}
         split["other"] = 0.0
         got = dict.fromkeys(want, 0)
-        for e in prof.key_averages():
-            if (getattr(e, "device_type", None)
-                    != torch.autograd.DeviceType.CUDA):
-                continue
-            ms = getattr(e, "self_device_time_total", 0) / 1e3
-            if ms <= 0:
-                continue
+        for e in device_rows(prof):
+            ms = e.self_device_time_total / 1e3
             name = next((n for n, k in STAGES if k in e.key), "other")
             split[name] += ms
             if name in got:

@@ -41,6 +41,7 @@ import torch
 
 from ..config import ModemConfig
 from ..utils import device as _device
+from ..utils import trace as _trace
 from .demod import DemodGeometry, geometry_from_config
 from .wirepack import parse_spec
 
@@ -207,8 +208,11 @@ def alloc_wire(shape, samples_dtype, in_encoding: str = None):
     int16/float32, the encoding's silence codeword for raw u8, zeros for
     dpack (zero header seeds and zero deltas reconstruct exact silence)."""
     if in_encoding and not parse_spec(in_encoding):
-        return np.full(shape, PAD_BYTE[in_encoding], np.uint8)
-    return np.zeros(shape, samples_dtype)
+        x = np.full(shape, PAD_BYTE[in_encoding], np.uint8)
+    else:
+        x = np.zeros(shape, samples_dtype)
+    _trace.add(alloc_bytes=x.nbytes)         # fresh host bytes, when traced
+    return x
 
 
 def wire_dtype(samples: np.ndarray, in_encoding: str = None) -> str:
@@ -939,29 +943,33 @@ class DeviceLoopback:
     def _dispatch(self, parts, b_pad, conf_threshold, conf_search_limit,
                   frames_mode=False, lead_trail=(2, 2)) -> _Batch:
         """Enqueue one program per part = (bits, totals[, n_frames])."""
-        dev = self._start()
-        loop = self.build_loop(b_pad, frames_mode, lead_trail)
-        thr = (float(conf_threshold), float(conf_search_limit))
-        held, outs = [], []
-        for part in parts:
-            args = [self._put(a, dev, held) for a in part]
-            outs.append(loop(args[0], args[1], thr, *args[2:]))
-        done = None
-        if dev.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(dev))
+        with _trace.span("lb.dispatch"):
+            dev = self._start()
+            loop = self.build_loop(b_pad, frames_mode, lead_trail)
+            thr = (float(conf_threshold), float(conf_search_limit))
+            held, outs = [], []
+            for part in parts:
+                with _trace.span("lb.upload"):
+                    args = [self._put(a, dev, held) for a in part]
+                with _trace.span("lb.enqueue"):
+                    outs.append(loop(args[0], args[1], thr, *args[2:]))
+            done = None
+            if dev.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
         return _Batch(outs, held, done)
 
     def _flat_parts(self, sched_lists, b_pad):
         parts = []
-        for scheds in sched_lists:
-            bits = np.zeros((len(scheds), b_pad), np.uint8)
-            for i, s in enumerate(scheds):
-                bits[i, :len(s)] = s
-            # 8 bits per byte over the host link, unpacked on the device
-            parts.append((np.packbits(bits, axis=1, bitorder="little"),
-                          np.asarray([len(s) * self.bit_ns for s in scheds],
-                                     np.int32)))
+        with _trace.span("lb.pack"):
+            for scheds in sched_lists:
+                bits = np.zeros((len(scheds), b_pad), np.uint8)
+                for i, s in enumerate(scheds):
+                    bits[i, :len(s)] = s
+                # 8 bits per byte over the host link, unpacked on the device
+                parts.append((np.packbits(bits, axis=1, bitorder="little"),
+                              np.asarray([len(s) * self.bit_ns
+                                          for s in scheds], np.int32)))
         return parts
 
     def dispatch_events_batch(self, sched_list, conf_threshold: float = 1.5,
@@ -981,47 +989,51 @@ class DeviceLoopback:
         buffers on the copy stream, without blocking."""
         if handle.host is not None:
             return handle
-        if handle.done is None:                       # CPU: already there
-            handle.host = [(n_ev, n_by, ev, by)
-                           for ev, n_ev, by, n_by in handle.outs]
-            return handle
-        stream = self._copy_stream
-        host = []
-        with torch.cuda.stream(stream):
-            stream.wait_event(handle.done)
-            for ev, n_ev, by, n_by in handle.outs:
-                srcs = (n_ev, n_by, ev[:, :min(EV_CAP, ev.shape[1])], by)
-                dsts = []
-                for src in srcs:
-                    src.record_stream(stream)
-                    dst = self._bufs.take(src.shape, src.dtype)
-                    dst.copy_(src, non_blocking=True)
-                    dsts.append(dst)
-                host.append(tuple(dsts))
-            handle.copied = torch.cuda.Event()
-            handle.copied.record(stream)
-        handle.host = host
+        with _trace.span("lb.prefetch"):
+            if handle.done is None:                   # CPU: already there
+                handle.host = [(n_ev, n_by, ev, by)
+                               for ev, n_ev, by, n_by in handle.outs]
+                return handle
+            stream = self._copy_stream
+            host = []
+            with torch.cuda.stream(stream):
+                stream.wait_event(handle.done)
+                for ev, n_ev, by, n_by in handle.outs:
+                    srcs = (n_ev, n_by, ev[:, :min(EV_CAP, ev.shape[1])], by)
+                    dsts = []
+                    for src in srcs:
+                        src.record_stream(stream)
+                        dst = self._bufs.take(src.shape, src.dtype)
+                        dst.copy_(src, non_blocking=True)
+                        dsts.append(dst)
+                    host.append(tuple(dsts))
+                handle.copied = torch.cuda.Event()
+                handle.copied.record(stream)
+            handle.host = host
         return handle
 
     def collect_events_batch(self, handle: _Batch):
         """Blocking half: wait for a dispatched batch's copies and unpack
         the per-stream event tuples (sub-batches in order)."""
-        self.prefetch_events_batch(handle)
-        if handle.copied is not None:
-            handle.copied.synchronize()
-        res = []
-        for (ev, _, by, _), (n_ev, n_by, ev_c, by_h) in zip(handle.outs,
-                                                           handle.host):
-            nev, nby = n_ev.numpy(), n_by.numpy()
-            kmax = int(nev.max(initial=0))
-            ev_h = (ev_c.numpy() if kmax <= ev_c.shape[1]
-                    else ev[:, :kmax].cpu().numpy())    # rare: the whole log
-            res.extend(_per_stream(nev, nby, ev_h, by_h.numpy(),
-                                   by.shape[1], self.compact))
-        if handle.done is not None:
-            self._bufs.give(handle.held)
-            self._bufs.give(t for h in handle.host for t in h)
-        handle.held, handle.host = [], None
+        with _trace.span("lb.collect"):
+            self.prefetch_events_batch(handle)
+            with _trace.span("lb.wait"):
+                if handle.copied is not None:
+                    handle.copied.synchronize()
+            with _trace.span("lb.unpack"):
+                res = []
+                for (ev, _, by, _), (n_ev, n_by, ev_c, by_h) in zip(
+                        handle.outs, handle.host):
+                    nev, nby = n_ev.numpy(), n_by.numpy()
+                    kmax = int(nev.max(initial=0))
+                    ev_h = (ev_c.numpy() if kmax <= ev_c.shape[1]
+                            else ev[:, :kmax].cpu().numpy())  # rare: all
+                    res.extend(_per_stream(nev, nby, ev_h, by_h.numpy(),
+                                           by.shape[1], self.compact))
+                if handle.done is not None:
+                    self._bufs.give(handle.held)
+                    self._bufs.give(t for h in handle.host for t in h)
+                handle.held, handle.host = [], None
         return res
 
     def run_events_batch(self, sched_list, conf_threshold: float = 1.5,
@@ -1071,13 +1083,14 @@ class DeviceLoopback:
         nstopbits, fractional included (device_synthesize_frames)."""
         f_real = [fb.shape[0] for fb in frame_sched_list]
         f_pad = ((max(f_real) + 511) // 512) * 512
-        bits = np.zeros((len(frame_sched_list), f_pad, self.cfg.n_data_bits),
-                        np.uint8)
-        for i, fb in enumerate(frame_sched_list):
-            bits[i, :fb.shape[0]] = fb
-        totals = np.asarray(
-            [lead_trail[0] * self.bit_ns + n * self.frame_len
-             + lead_trail[1] * self.bit_ns for n in f_real], np.int32)
+        with _trace.span("lb.pack"):
+            bits = np.zeros((len(frame_sched_list), f_pad,
+                             self.cfg.n_data_bits), np.uint8)
+            for i, fb in enumerate(frame_sched_list):
+                bits[i, :fb.shape[0]] = fb
+            totals = np.asarray(
+                [lead_trail[0] * self.bit_ns + n * self.frame_len
+                 + lead_trail[1] * self.bit_ns for n in f_real], np.int32)
         return self.collect_events_batch(self._dispatch(
             [(bits, totals, np.asarray(f_real, np.int32))], f_pad,
             conf_threshold, conf_search_limit, True, tuple(lead_trail)))

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ..utils import device as _device
+from ..utils import trace as _trace
 from .device_rx import (
     EV_CARRIER,
     EV_FLAG_ACQUIRED,
@@ -712,18 +713,30 @@ class MegaReceiver:
         in_dtype = wire_dtype(samples, in_encoding)
         run = mega_runner(self.key, t_total, self.rx_one, in_dtype,
                           finalize, 0, self.compact, self.stop_on_overflow)
-        if parse_spec(in_dtype):
-            # dpack rows pass through at the caller's capacity: the wire
-            # row is the upload
-            x = np.ascontiguousarray(samples)
-        else:
-            row = t_total + halo
-            x = alloc_wire((b, row), samples.dtype, in_encoding)
-            x[:, :min(L, row)] = samples[:, :row]
-        ci, cf = self.carry_to_arrays(carry, b)
-        out = run(torch.from_numpy(x).to(dev), torch.from_numpy(totals).to(dev),
-                  (conf_threshold, conf_search_limit),
-                  torch.from_numpy(ci).to(dev), torch.from_numpy(cf).to(dev))
-        events = _collect(out[:4], b, self.compact)
-        return events, self.arrays_to_carry(out[4].cpu().numpy(),
-                                            out[5].cpu().numpy())
+        # the four spans cover the call's work (utils/trace.py: recorded
+        # only under torch.profiler)
+        with _trace.span("rx.wire") as sp:
+            if parse_spec(in_dtype):
+                # dpack rows pass through at the caller's capacity: the
+                # wire row is the upload
+                x = np.ascontiguousarray(samples)
+                if x is not samples:
+                    _trace.add(alloc_bytes=x.nbytes)
+            else:
+                row = t_total + halo
+                x = alloc_wire((b, row), samples.dtype, in_encoding)
+                x[:, :min(L, row)] = samples[:, :row]
+            sp.count(bytes=x.nbytes)
+        with _trace.span("rx.upload") as sp:
+            ci, cf = self.carry_to_arrays(carry, b)
+            x_d, totals_d, ci_d, cf_d = (torch.from_numpy(a).to(dev)
+                                         for a in (x, totals, ci, cf))
+            sp.count(bytes=x.nbytes + totals.nbytes + ci.nbytes + cf.nbytes)
+        with _trace.span("rx.enqueue"):
+            out = run(x_d, totals_d, (conf_threshold, conf_search_limit),
+                      ci_d, cf_d)
+        with _trace.span("rx.collect"):
+            events = _collect(out[:4], b, self.compact)
+            carry_out = self.arrays_to_carry(out[4].cpu().numpy(),
+                                             out[5].cpu().numpy())
+        return events, carry_out
