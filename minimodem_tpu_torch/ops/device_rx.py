@@ -34,6 +34,9 @@ crosses the host link.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -425,6 +428,87 @@ class _Uploader:
             compute.wait_event(done)
             dev.record_stream(compute)
         return dev
+
+
+# the staging of a wire on a card (MegaReceiver.run_events_batch): per
+# device, STAGE_SLOTS host chunks of STAGE_CHUNK_BYTES, pinned, allocated
+# at first use and reused by every call after
+STAGE_CHUNK_BYTES = 4 << 20
+STAGE_SLOTS = 3
+
+
+class WireStager:
+    """A wire's host -> device copy through reused host chunks: the host
+    fills one chunk while the chunks before it move by DMA on a copy
+    stream, and the pad columns are set on the device, so no call
+    allocates or zeroes a wire-sized host buffer.  On the CPU the chunks
+    are plain memory and the copies synchronous."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+        self._chunks = [None] * STAGE_SLOTS
+        self._done = [None] * STAGE_SLOTS     # each chunk's last DMA
+        self._lock = threading.Lock()
+
+    def _chunk(self, slot: int) -> torch.Tensor:
+        """The slot's chunk once its last DMA has landed."""
+        if self._done[slot] is not None:
+            self._done[slot].synchronize()
+        c = self._chunks[slot]
+        if c is None:
+            c = self._chunks[slot] = torch.empty(
+                STAGE_CHUNK_BYTES, dtype=torch.uint8,
+                pin_memory=self.stream is not None)
+            _trace.add(alloc_bytes=c.numel())  # fresh host bytes, when traced
+        return c
+
+    def wire(self, samples: np.ndarray, row: int, pad: int):
+        """The wire [B, row] on the device in samples' dtype:
+        samples[:, :row], then `pad` in every column past the samples.
+        Returns it and the count of chunks it took; join() before the
+        launch stream reads it."""
+        b, n = samples.shape
+        m = min(n, row)
+        dtype = torch.from_numpy(np.empty(0, samples.dtype)).dtype
+        per = STAGE_CHUNK_BYTES // samples.itemsize
+        chunks = 0
+        on = (torch.cuda.stream(self.stream) if self.stream is not None
+              else contextlib.nullcontext())
+        with self._lock, on:
+            out = torch.empty((b, row), dtype=dtype, device=self.device)
+            out[:, m:].fill_(pad)
+            for e0 in range(0, b * m, per):
+                e1 = min(e0 + per, b * m)
+                slot = chunks % STAGE_SLOTS
+                host = self._chunk(slot)[:per * samples.itemsize].view(dtype)
+                hn = host.numpy()
+                e = e0
+                while e < e1:              # the chunk's piece of each row
+                    r, c = divmod(e, m)
+                    k = min(m - c, e1 - e)
+                    hn[e - e0:e - e0 + k] = samples[r, c:c + k]
+                    out[r, c:c + k].copy_(host[e - e0:e - e0 + k],
+                                          non_blocking=True)
+                    e += k
+                if self.stream is not None:
+                    self._done[slot] = self.stream.record_event()
+                chunks += 1
+        return out, chunks
+
+    def join(self, wire: torch.Tensor) -> None:
+        """Make the launch stream wait for the wire's copies."""
+        if self.stream is not None:
+            launch = torch.cuda.current_stream(self.device)
+            launch.wait_stream(self.stream)
+            wire.record_stream(launch)
+
+
+@functools.lru_cache(maxsize=None)
+def wire_stager(device: torch.device) -> WireStager:
+    """The device's one WireStager, shared by every receiver on it."""
+    return WireStager(device)
 
 
 class PipelinedReceiver:

@@ -64,6 +64,7 @@ from .device_rx import (
     FSK_ANALYZE_NSTEPS,
     FSK_ANALYZE_NSTEPS_FINE,
     FSK_MAX_NOCONFIDENCE_BITS,
+    PAD_BYTE,
     U8_ENCODINGS,
     _collect,
     _round_up_pow2,
@@ -75,6 +76,7 @@ from .device_rx import (
     make_score_packer_planes,
     plane_names,
     wire_dtype,
+    wire_stager,
 )
 from .wirepack import parse_spec, unpack_expand
 
@@ -714,24 +716,41 @@ class MegaReceiver:
         run = mega_runner(self.key, t_total, self.rx_one, in_dtype,
                           finalize, 0, self.compact, self.stop_on_overflow)
         # the four spans cover the call's work (utils/trace.py: recorded
-        # only under torch.profiler)
+        # only under torch.profiler).  The wire row: dpack rows pass
+        # through at the caller's capacity, any other wire is t_total +
+        # halo samples, silence past the samples
+        dpack = parse_spec(in_dtype)
+        row = L if dpack else t_total + halo
+        staged = dev.type == "cuda"
         with _trace.span("rx.wire") as sp:
-            if parse_spec(in_dtype):
-                # dpack rows pass through at the caller's capacity: the
-                # wire row is the upload
-                x = np.ascontiguousarray(samples)
-                if x is not samples:
-                    _trace.add(alloc_bytes=x.nbytes)
+            if staged:
+                # through the device's reused pinned chunks, their DMAs
+                # overlapping the host's copy; the pads set on the card
+                stager = wire_stager(dev)
+                x_d, chunks = stager.wire(samples, row,
+                                          PAD_BYTE.get(in_encoding, 0))
+                sp.count(bytes=x_d.nbytes, chunks=chunks)
             else:
-                row = t_total + halo
-                x = alloc_wire((b, row), samples.dtype, in_encoding)
-                x[:, :min(L, row)] = samples[:, :row]
-            sp.count(bytes=x.nbytes)
+                # on the CPU the host wire is the device wire
+                if dpack:
+                    x = np.ascontiguousarray(samples)
+                    if x is not samples:
+                        _trace.add(alloc_bytes=x.nbytes)
+                else:
+                    x = alloc_wire((b, row), samples.dtype, in_encoding)
+                    x[:, :min(L, row)] = samples[:, :row]
+                sp.count(bytes=x.nbytes)
         with _trace.span("rx.upload") as sp:
             ci, cf = self.carry_to_arrays(carry, b)
-            x_d, totals_d, ci_d, cf_d = (torch.from_numpy(a).to(dev)
-                                         for a in (x, totals, ci, cf))
-            sp.count(bytes=x.nbytes + totals.nbytes + ci.nbytes + cf.nbytes)
+            small = (totals, ci, cf)
+            totals_d, ci_d, cf_d = (torch.from_numpy(a).to(dev)
+                                    for a in small)
+            if staged:
+                stager.join(x_d)
+                sp.count(bytes=sum(a.nbytes for a in small))
+            else:
+                x_d = torch.from_numpy(x)
+                sp.count(bytes=x.nbytes + sum(a.nbytes for a in small))
         with _trace.span("rx.enqueue"):
             out = run(x_d, totals_d, (conf_threshold, conf_search_limit),
                       ci_d, cf_d)

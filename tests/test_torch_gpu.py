@@ -618,6 +618,110 @@ def test_pipelined_cuda_equals_cpu(cuda):
     assert outs[1][0] == p1 + b"tail"
 
 
+class _PageableWire:
+    """The wire as the receiver built it before its staging: a host
+    buffer of the pad byte, the samples copied in, a pageable upload."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def wire(self, samples, row, pad):
+        x = np.full((samples.shape[0], row), pad, samples.dtype)
+        x[:, :min(samples.shape[1], row)] = samples[:, :row]
+        return torch.from_numpy(x).to(self.device), 0
+
+    def join(self, wire):
+        pass
+
+
+def _uic_channels(b, n, seed):
+    """b int16 channels of n samples: noise, and 3 bursts of 20 seeded
+    UIC-751-3 telegrams at a seeded place in each."""
+    from minimodem_tpu_torch.models.presets import uic
+    from minimodem_tpu_torch.ops.tx import ToneGenerator
+    from minimodem_tpu_torch.sigio import SampleFormat
+
+    cfg = uic("train").cfg
+    rng = np.random.default_rng(seed)
+    gen = ToneGenerator(cfg.sample_rate, SampleFormat.FLOAT)
+    for _ in range(3):
+        bits = [1] * 16
+        for _ in range(20):
+            data = int(rng.integers(0, 1 << 39))
+            bits += [1, 1, 1, 1, 0, 0, 1, 0] + [(data >> i) & 1
+                                                for i in range(39)]
+        for v in bits + [1] * 8:
+            gen.tone(float(cfg.mark_f if v else cfg.space_f),
+                     cfg.bit_nsamples_tx)
+        gen.tone(0.0, cfg.sample_rate // 5)
+    burst = (gen.synthesize() * 16000).astype(np.int16)
+    x = rng.integers(-3000, 3000, (b, n), dtype=np.int16)
+    for c in range(b):
+        at = int(rng.integers(0, n - len(burst)))
+        x[c, at:at + len(burst)] += burst
+    return cfg, x
+
+
+@pytest.mark.parametrize("case", ["batch16", "segment", "ulaw"])
+def test_staged_wire_equals_pageable_upload(cuda, monkeypatch, case):
+    """MegaReceiver.run_events_batch on the card, its wire through the
+    device's reused pinned chunks: events and carry equal to the old
+    pageable upload's, at the recorded batch's shape (16 x 2,845,440
+    int16 of uic-train), a streaming segment ([1, 65976] int16, not
+    final) and a u-law wire; a second call allocates no chunk; the
+    batch takes several chunks, the segment one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from minimodem_tpu_torch.bench import _encode_wire
+    from minimodem_tpu_torch.ops import mega_rx
+    from minimodem_tpu_torch.ops.device_rx import DeviceReceiver
+    from minimodem_tpu_torch.utils import trace
+
+    enc, finalize = None, True
+    if case == "batch16":
+        cfg, x = _uic_channels(16, 2_845_440, 18)
+        totals = [x.shape[1]] * 16
+    else:
+        cfg, wav = _noisy("1200", 18, n_bytes=400)
+        if case == "segment":
+            x = np.clip(np.rint(wav[:65976] * 16000), -32768,
+                        32767).astype(np.int16)[None]
+            totals, finalize = [60000], False
+        else:
+            enc = "ulaw"
+            x = np.stack([_encode_wire(wav * 0.5, enc),
+                          _encode_wire(wav[::-1] * 0.5, enc)])
+            totals = [x.shape[1], x.shape[1] - 999]
+    rx = DeviceReceiver(cfg, device=cuda)
+
+    def run():
+        return rx.run_events_batch(x, totals, THR, LIM, finalize=finalize,
+                                   in_encoding=enc)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(mega_rx, "wire_stager", _PageableWire)
+        want_ev, want_carry = run()
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = [run(), run()]
+    wires = [r.counts for r in trace.records() if r.name == "rx.wire"]
+    trace.clear()
+    for ev, c in got:
+        assert len(ev) == len(want_ev)
+        for g, w in zip(ev, want_ev):
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(a, b)
+        for k in want_carry:
+            np.testing.assert_array_equal(c[k], want_carry[k], err_msg=k)
+    assert sum(len(e[0]) for e in want_ev) > 0
+    assert len(wires) == 2 and wires[1].get("alloc_bytes", 0) == 0
+    assert wires[1]["bytes"] == wires[0]["bytes"]
+    if case == "batch16":
+        assert wires[1]["chunks"] >= 2
+    elif case == "segment":
+        assert wires[1]["chunks"] == 1
+
+
 @pytest.mark.parametrize("k", [0, 2, 5])
 def test_wirepack_unpack_cuda_equals_cpu(cuda, k):
     """unpack_expand on the card: every float32 word of the row equals the
