@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace as _trace
 from .demod import DemodGeometry, correlate, make_basis, score_frame_channels
 
 # candidate offsets per CTA, largest first; the kernel stages the tile's
@@ -76,6 +77,22 @@ def pick_tile(geo: DemodGeometry):
         if smem_bytes(geo, tile) <= _SMEM_MAX:
             return tile
     return None
+
+
+def launch_counts(geo: DemodGeometry, rows: int, t_len: int) -> dict:
+    """The work of one K1 launch over `rows` streams of `t_len` scored
+    offsets, as csrc/fused_score.cu does it: `k1_offsets`, the offsets
+    scored (rows x t_len), and `k1_correlated`, the offsets stage 1
+    correlates (each CTA its n_t <= tile offsets plus max_begin of halo,
+    in whole tasks of 8: rows x the sum over CTAs of round8(n_t +
+    max_begin)).  RTTY at 48 kHz: tile 4096, max_begin 7392, 2.80
+    correlated a scored offset; Bell-202: 4096, 400, 1.10."""
+    tile = pick_tile(geo)
+    full, last = divmod(t_len, tile)
+    per_row = full * _round8(tile + geo.max_begin)
+    if last:
+        per_row += _round8(last + geo.max_begin)
+    return {"k1_offsets": rows * t_len, "k1_correlated": rows * per_row}
 
 
 def serves(geo: DemodGeometry) -> bool:
@@ -162,6 +179,8 @@ class FusedScorer:
             out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
         _kernels.check(err, "mm_fused_score")
         FusedScorer.launches += 1
+        if _trace.enabled():
+            _trace.add(**launch_counts(geo, x.shape[0], t_len))
         return out
 
 

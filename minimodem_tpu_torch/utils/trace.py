@@ -102,6 +102,11 @@ class Record:
         self.counts.update(counts)
 
 
+def enabled() -> bool:
+    """Whether spans record now: a torch.profiler records."""
+    return _enabled()
+
+
 def span(name: str):
     """A context manager over the work of `name`, recorded only while
     torch.profiler records."""

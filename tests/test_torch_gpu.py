@@ -722,6 +722,46 @@ def test_staged_wire_equals_pageable_upload(cuda, monkeypatch, case):
         assert wires[1]["chunks"] == 1
 
 
+def test_k1_counts_in_a_traced_rtty_call(cuda):
+    """K1's launch adds k1_offsets and k1_correlated to the receiver's
+    rx.enqueue span, the values of fused_score.launch_counts at the
+    call's rows and scored length (RTTY: a 4096-offset tile under an
+    8448-sample halo); an untraced call records nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from minimodem_tpu_torch.ops import fused_score
+    from minimodem_tpu_torch.ops.demod import geometry_from_config
+    from minimodem_tpu_torch.ops.device_rx import (DeviceReceiver,
+                                                   _round_up_pow2)
+    from minimodem_tpu_torch.utils import trace
+
+    cfg, wav = _noisy("rtty", 19)
+    s16 = np.clip(np.rint(wav * 16000), -32768, 32767).astype(np.int16)
+    x = np.stack([s16, s16[::-1], s16])
+    n = x.shape[1]
+    rx = DeviceReceiver(cfg, device=cuda)
+    trace.clear()
+    launches = fused_score.FusedScorer.launches
+    untraced, _ = rx.run_events_batch(x, [n] * 3, THR, LIM)
+    assert fused_score.FusedScorer.launches == launches + 1
+    assert trace.records() == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced, _ = rx.run_events_batch(x, [n] * 3, THR, LIM)
+    recs = trace.records()
+    trace.clear()
+    t_len = _round_up_pow2(n + cfg.nsamples_overscan + 1)
+    want = fused_score.launch_counts(geometry_from_config(cfg), 3, t_len)
+    assert want["k1_correlated"] > 2 * want["k1_offsets"]
+    enqueue = [r for r in recs if r.name == "rx.enqueue"]
+    assert len(enqueue) == 1 and enqueue[0].counts == want
+    assert not any("k1_offsets" in r.counts for r in recs
+                   if r.name != "rx.enqueue")
+    for a, b in zip(untraced, traced):
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u, v)
+    assert len(traced[0][2]) > 0
+
+
 @pytest.mark.parametrize("k", [0, 2, 5])
 def test_wirepack_unpack_cuda_equals_cpu(cuda, k):
     """unpack_expand on the card: every float32 word of the row equals the
