@@ -37,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -435,14 +436,42 @@ class _Uploader:
 # at first use and reused by every call after
 STAGE_CHUNK_BYTES = 4 << 20
 STAGE_SLOTS = 3
+# a call whose samples reach this many bytes fills the chunks through
+# ATen's copy on the intra-op threads, a smaller one through NumPy on the
+# calling thread: below ~2 MB waking the threads costs more than they
+# save (an H100's 8-core host, the stager's host time after 20 ms idle:
+# a 0.26 MB streaming segment 0.90-1.17 ms by ATen against 0.60-0.68 by
+# NumPy, 4 MB 0.95-1.17 against 1.34-1.56; PERF.md, Findings)
+PARALLEL_FILL_BYTES = 4 << 20
+
+
+def _host_view(samples: np.ndarray):
+    """samples as a CPU tensor over their own memory, or None where torch
+    cannot view them (a negative stride).  A read-only source (a WAV
+    reader's np.frombuffer) is only read through the view, so torch's
+    warning that it is not writable is silenced around this view alone."""
+    try:
+        if samples.flags.writeable:
+            return torch.from_numpy(samples)
+        with warnings.catch_warnings():
+            warnings.filterwarnings(
+                "ignore", "The given NumPy array is not writable",
+                UserWarning)
+            return torch.from_numpy(samples)
+    except ValueError:
+        return None
 
 
 class WireStager:
     """A wire's host -> device copy through reused host chunks: the host
     fills one chunk while the chunks before it move by DMA on a copy
     stream, and the pad columns are set on the device, so no call
-    allocates or zeroes a wire-sized host buffer.  On the CPU the chunks
-    are plain memory and the copies synchronous."""
+    allocates or zeroes a wire-sized host buffer.  From
+    PARALLEL_FILL_BYTES of samples up the host fills a chunk with ATen's
+    copy, on the process's intra-op threads, from a tensor view of the
+    samples; a smaller call, or a source torch cannot view, keeps NumPy's
+    copy.  On the CPU the chunks are plain memory and the copies
+    synchronous."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -477,24 +506,33 @@ class WireStager:
         on = (torch.cuda.stream(self.stream) if self.stream is not None
               else contextlib.nullcontext())
         with self._lock, on:
+            src = (_host_view(samples)
+                   if b * m * samples.itemsize >= PARALLEL_FILL_BYTES
+                   else None)
             out = torch.empty((b, row), dtype=dtype, device=self.device)
             out[:, m:].fill_(pad)
             for e0 in range(0, b * m, per):
                 e1 = min(e0 + per, b * m)
                 slot = chunks % STAGE_SLOTS
                 host = self._chunk(slot)[:per * samples.itemsize].view(dtype)
-                hn = host.numpy()
+                hn = host.numpy() if src is None else None
                 e = e0
                 while e < e1:              # the chunk's piece of each row
                     r, c = divmod(e, m)
                     k = min(m - c, e1 - e)
-                    hn[e - e0:e - e0 + k] = samples[r, c:c + k]
+                    if src is None:
+                        hn[e - e0:e - e0 + k] = samples[r, c:c + k]
+                    else:
+                        host[e - e0:e - e0 + k].copy_(src[r, c:c + k])
                     out[r, c:c + k].copy_(host[e - e0:e - e0 + k],
                                           non_blocking=True)
                     e += k
                 if self.stream is not None:
                     self._done[slot] = self.stream.record_event()
                 chunks += 1
+            if src is not None:
+                # the bytes filled on the intra-op threads, when traced
+                _trace.add(parallel_bytes=b * m * samples.itemsize)
         return out, chunks
 
     def join(self, wire: torch.Tensor) -> None:

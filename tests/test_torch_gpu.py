@@ -669,12 +669,16 @@ def test_staged_wire_equals_pageable_upload(cuda, monkeypatch, case):
     pageable upload's, at the recorded batch's shape (16 x 2,845,440
     int16 of uic-train), a streaming segment ([1, 65976] int16, not
     final) and a u-law wire; a second call allocates no chunk; the
-    batch takes several chunks, the segment one."""
+    batch takes several chunks, the segment one; the host fills the
+    chunks through ATen's copy (`parallel_bytes`) where the samples reach
+    PARALLEL_FILL_BYTES, the batch, and through NumPy's below it, the
+    segment and the u-law wire."""
     from torch.profiler import ProfilerActivity, profile
 
     from minimodem_tpu_torch.bench import _encode_wire
     from minimodem_tpu_torch.ops import mega_rx
-    from minimodem_tpu_torch.ops.device_rx import DeviceReceiver
+    from minimodem_tpu_torch.ops.device_rx import (PARALLEL_FILL_BYTES,
+                                                   DeviceReceiver)
     from minimodem_tpu_torch.utils import trace
 
     enc, finalize = None, True
@@ -720,6 +724,9 @@ def test_staged_wire_equals_pageable_upload(cuda, monkeypatch, case):
         assert wires[1]["chunks"] >= 2
     elif case == "segment":
         assert wires[1]["chunks"] == 1
+    big = x.nbytes >= PARALLEL_FILL_BYTES
+    assert big == (case == "batch16")
+    assert wires[1].get("parallel_bytes", 0) == (x.nbytes if big else 0)
 
 
 def test_k1_counts_in_a_traced_rtty_call(cuda):
