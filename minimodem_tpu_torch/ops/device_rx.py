@@ -207,16 +207,11 @@ def expand_wire(x: torch.Tensor, total: torch.Tensor, input_dtype: str,
                        torch.zeros((), dtype=v.dtype, device=v.device))
 
 
-def alloc_wire(shape, samples_dtype, in_encoding: str = None):
-    """Zero-signal-filled host buffer for a wire upload: np.zeros for
-    int16/float32, the encoding's silence codeword for raw u8, zeros for
-    dpack (zero header seeds and zero deltas reconstruct exact silence)."""
-    if in_encoding and not parse_spec(in_encoding):
-        x = np.full(shape, PAD_BYTE[in_encoding], np.uint8)
-    else:
-        x = np.zeros(shape, samples_dtype)
-    _trace.add(alloc_bytes=x.nbytes)         # fresh host bytes, when traced
-    return x
+def wire_pad(in_encoding: str = None) -> int:
+    """The silence codeword of a wire, past its samples: PAD_BYTE for a
+    raw u8 encoding, 0 for int16, float32 and dpack (zero header seeds and
+    zero deltas reconstruct exact silence)."""
+    return PAD_BYTE.get(in_encoding, 0)
 
 
 def wire_dtype(samples: np.ndarray, in_encoding: str = None) -> str:
@@ -397,43 +392,10 @@ class DeviceReceiver:
             carry=carry, finalize=finalize, in_encoding=in_encoding)
 
 
-class _Uploader:
-    """Host -> device copies on their own CUDA stream from pinned buffers,
-    so segment k+1's transfer overlaps segment k's decode.  On the CPU a
-    "transfer" is a tensor view of the host buffer."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                       else None)
-
-    def host_buffer(self, shape, dtype) -> torch.Tensor:
-        return torch.empty(shape, dtype=dtype,
-                           pin_memory=self.stream is not None)
-
-    def put(self, host: torch.Tensor):
-        """Start the copy; returns a handle for take()."""
-        if self.stream is None:
-            return host, None, host
-        with torch.cuda.stream(self.stream):
-            dev = host.to(self.device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self.stream)
-        return dev, done, host
-
-    def take(self, handle) -> torch.Tensor:
-        """Make the compute stream wait for the copy; returns the tensor."""
-        dev, done, _host = handle
-        if done is not None:
-            compute = torch.cuda.current_stream(self.device)
-            compute.wait_event(done)
-            dev.record_stream(compute)
-        return dev
-
-
-# the staging of a wire on a card (MegaReceiver.run_events_batch): per
-# device, STAGE_SLOTS host chunks of STAGE_CHUNK_BYTES, pinned, allocated
-# at first use and reused by every call after
+# the staging of every receiver's wire (MegaReceiver.run_events_batch,
+# PipelinedReceiver.run, the fleet's ShardedReceiver): per device,
+# STAGE_SLOTS host chunks of STAGE_CHUNK_BYTES, pinned on a card,
+# allocated at first use and reused by every call after
 STAGE_CHUNK_BYTES = 4 << 20
 STAGE_SLOTS = 3
 # a call whose samples reach this many bytes fills the chunks through
@@ -465,13 +427,13 @@ def _host_view(samples: np.ndarray):
 class WireStager:
     """A wire's host -> device copy through reused host chunks: the host
     fills one chunk while the chunks before it move by DMA on a copy
-    stream, and the pad columns are set on the device, so no call
-    allocates or zeroes a wire-sized host buffer.  From
-    PARALLEL_FILL_BYTES of samples up the host fills a chunk with ATen's
-    copy, on the process's intra-op threads, from a tensor view of the
-    samples; a smaller call, or a source torch cannot view, keeps NumPy's
-    copy.  On the CPU the chunks are plain memory and the copies
-    synchronous."""
+    stream, and the pad columns are set on the device to the encoding's
+    silence (wire_pad), so no call allocates or fills a wire-sized host
+    buffer.  From PARALLEL_FILL_BYTES of samples up the host fills a
+    chunk with ATen's copy, on the process's intra-op threads, from a
+    tensor view of the samples; a smaller call, or a source torch cannot
+    view, keeps NumPy's copy.  On the CPU the chunks are plain memory
+    and the copies synchronous."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -493,11 +455,11 @@ class WireStager:
             _trace.add(alloc_bytes=c.numel())  # fresh host bytes, when traced
         return c
 
-    def wire(self, samples: np.ndarray, row: int, pad: int):
+    def wire(self, samples: np.ndarray, row: int, in_encoding: str = None):
         """The wire [B, row] on the device in samples' dtype:
-        samples[:, :row], then `pad` in every column past the samples.
-        Returns it and the count of chunks it took; join() before the
-        launch stream reads it."""
+        samples[:, :row], then wire_pad(in_encoding) in every column past
+        the samples.  Returns it and the count of chunks it took; join()
+        before the launch stream reads it."""
         b, n = samples.shape
         m = min(n, row)
         dtype = torch.from_numpy(np.empty(0, samples.dtype)).dtype
@@ -510,7 +472,7 @@ class WireStager:
                    if b * m * samples.itemsize >= PARALLEL_FILL_BYTES
                    else None)
             out = torch.empty((b, row), dtype=dtype, device=self.device)
-            out[:, m:].fill_(pad)
+            out[:, m:].fill_(wire_pad(in_encoding))
             for e0 in range(0, b * m, per):
                 e1 = min(e0 + per, b * m)
                 slot = chunks % STAGE_SLOTS
@@ -683,67 +645,51 @@ class PipelinedReceiver:
         segs = [(s0, t_total, total_nf, False) for s0 in starts]
         segs.append((tail_start, t_total_f, tail_total, True))
 
-        up = _Uploader(dev)
-        wire_t = {"int16": torch.int16, "float32": torch.float32}.get(
-            in_dtype, torch.uint8)
-
-        def host_raw(seg, tt, raw: bool):
-            """The raw wire's host buffer: the samples, then silence."""
-            host = up.host_buffer((1, tt + halo),
-                                  torch.int16 if raw else wire_t)
-            hx = host.numpy()
-            hx.fill(PAD_BYTE[in_encoding] if in_encoding else 0)
-            m = min(len(seg), hx.shape[1])
-            hx[0, :m] = seg[:m]
-            return host, raw
+        stager = wire_stager(dev)
 
         def host_of(j):
-            """Segment j's filled host buffer (no device call), and
+            """Segment j's host rows (no device call): the samples, or a
+            dpack segment's packed row; the wire's width and encoding; and
             whether it rides the raw int16 wire of a dpack stream."""
             s0, tt, _, final = segs[j]
-            seg = samples[s0:n if final else s0 + self.segment_len]
-            if dp is None:
-                return host_raw(seg, tt, False)
-            if len(seg) > tt + halo:
-                # clipped: the raw buffer zero-fills where the packed
-                # hold-tail would survive the mask
-                return host_raw(seg, tt, True)
-            k, w, n_packed, e_cap = dp
-            host = up.host_buffer(
-                (1, wirepack.row_bytes(n_packed, k, w, e_cap) // 2),
-                torch.int16)
-            try:
-                wirepack.pack(seg, n_packed, k, w, e_cap,
-                              out=host.numpy().view(np.uint8).reshape(-1))
-            except ValueError:               # denser content: raw wire
-                return host_raw(seg, tt, True)
-            return host, False
+            seg = samples[None, s0:n if final else s0 + self.segment_len]
+            if dp is not None and seg.shape[1] <= tt + halo:
+                k, w, n_packed, e_cap = dp
+                try:
+                    row = wirepack.pack(seg[0], n_packed, k, w,
+                                        e_cap).view(np.int16)[None, :]
+                    return row, row.shape[1], in_dtype, False
+                except ValueError:           # denser content: raw wire
+                    pass
+            # a clipped dpack segment rides the raw wire too: it pads with
+            # silence where the packed hold-tail would survive the mask
+            return seg, tt + halo, in_encoding, dp is not None
 
         # a dpack segment's pack is host work as long as several decodes
         # (PERF.md section 5), so segment prep runs on a pool of two
-        # workers, two segments ahead; uploads stay in segment order, one
-        # ahead of the decode
+        # workers, two segments ahead; wires are staged in segment order,
+        # one ahead of the decode
         pool = ThreadPoolExecutor(max_workers=2) if dp is not None else None
         preps = {}
 
         def upload(j):
             if pool is None:
-                host, raw = host_of(j)
+                host, row, enc, raw = host_of(j)
             else:
                 for a in range(j, min(j + 2, len(segs))):
                     if a not in preps:
                         preps[a] = pool.submit(host_of, a)
-                host, raw = preps.pop(j).result()
-            return up.put(host), raw
+                host, row, enc, raw = preps.pop(j).result()
+            return stager.wire(host, row, enc)[0], raw
 
         ci, cf = (torch.from_numpy(a).to(dev)
                   for a in MegaReceiver.carry_to_arrays(None, 1))
         try:
             pending = upload(0)
             for i, (_, _, total_i, final) in enumerate(segs):
-                handle, raw = pending
+                x, raw = pending
                 self.raw_segments += raw
-                x = up.take(handle)
+                stager.join(x)
                 totals = torch.tensor([total_i], dtype=torch.int32,
                                       device=dev)
                 out = runner(raw, final)(x, totals, thr, ci, cf)

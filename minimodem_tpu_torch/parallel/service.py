@@ -106,8 +106,8 @@ class ShardedReceiver(_LazyMesh):
         bytes, n_by, ...) for this rank's block: x is [Bl, t_total +
         halo] with sp = 1, else this rank's [Bl, t_total / sp] shard."""
         from ..ops.device_rx import (
-            PAD_BYTE, U8_ENCODINGS, expand_wire, geo_from_key,
-            make_score_packer_planes)
+            U8_ENCODINGS, expand_wire, geo_from_key, make_score_packer_planes,
+            wire_pad)
         from ..ops.mega_rx import MegaRx, MegaStatics, mega_runner
 
         mesh = self.mesh
@@ -136,7 +136,7 @@ class ShardedReceiver(_LazyMesh):
         # the last shard scores into the silence the unsharded receiver
         # pads with past t_total: for u8 wires the silence CODEWORD, not
         # byte 0, which would expand to DC
-        silence = PAD_BYTE[in_dtype] if u8 else 0
+        silence = wire_pad(in_dtype)
         start = mesh.get_local_rank("sp") * t_local
         sp_group = mesh.get_group("sp")
 
@@ -164,8 +164,8 @@ class ShardedReceiver(_LazyMesh):
         DeviceReceiver's (per-stream tuples), stats a dict of fleet
         aggregates."""
         from ..ops.device_rx import (
-            EV_NOCARRIER, _collect, _round_up_pow2, alloc_wire, geo_from_key,
-            wire_dtype)
+            EV_NOCARRIER, _collect, _round_up_pow2, geo_from_key, wire_dtype,
+            wire_pad, wire_stager)
 
         mesh = self.mesh
         dev = self.rank_device()
@@ -190,13 +190,20 @@ class ShardedReceiver(_LazyMesh):
         r0 = mesh.get_local_rank("dp") * bl
         rows = max(0, min(b - r0, bl))
         n = max(0, min(L - c0, width))
-        x = alloc_wire((bl, width), samples.dtype, in_encoding)
-        x[:rows, :n] = samples[r0:r0 + rows, c0:c0 + n]
+        # the rank's block through the device's stager; the ragged last
+        # dp rank's rows past the batch are silence, made on the device
+        stager = wire_stager(dev)
+        x, _ = stager.wire(samples[r0:r0 + rows, c0:c0 + n], width,
+                           in_encoding)
+        stager.join(x)
+        if rows < bl:
+            x = torch.nn.functional.pad(x, (0, 0, 0, bl - rows),
+                                        value=wire_pad(in_encoding))
         tot = np.zeros((bl,), np.int32)
         tot[:rows] = totals[r0:r0 + rows]
         ci = torch.zeros((bl, 8), dtype=torch.int32, device=dev)
         cf = torch.zeros((bl, 4), dtype=torch.float32, device=dev)
-        out = run(torch.from_numpy(x).to(dev), torch.from_numpy(tot).to(dev),
+        out = run(x, torch.from_numpy(tot).to(dev),
                   (conf_threshold, conf_search_limit), ci, cf)
         ev, n_ev = out[0], out[1]
 

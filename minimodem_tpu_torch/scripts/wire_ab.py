@@ -49,7 +49,7 @@ def stage(dev, b, n, dtype="int16", reps=20):
     for i in range(reps + 2):                      # two warm-up calls
         sync(dev)
         t0 = time.perf_counter()
-        out, chunks = stager.wire(x, n + 4096, 0)
+        out, chunks = stager.wire(x, n + 4096)
         t1 = time.perf_counter()
         stager.join(out)
         sync(dev)

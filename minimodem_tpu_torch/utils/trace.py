@@ -2,9 +2,9 @@
 records.
 
     with span("rx.wire") as s:
-        x = alloc_wire(...)          # add(alloc_bytes=...) where it allocates
+        x, chunks = stager.wire(...)  # add(alloc_bytes=...) where it allocates
         ...
-        s.count(bytes=x.nbytes)
+        s.count(bytes=x.nbytes, chunks=chunks)
 
 Outside a profiler a span costs one check,
 torch.autograd._profiler_enabled(), and returns a shared object that does

@@ -625,8 +625,11 @@ class _PageableWire:
     def __init__(self, device):
         self.device = device
 
-    def wire(self, samples, row, pad):
-        x = np.full((samples.shape[0], row), pad, samples.dtype)
+    def wire(self, samples, row, in_encoding=None):
+        from minimodem_tpu_torch.ops.device_rx import PAD_BYTE
+
+        x = np.full((samples.shape[0], row), PAD_BYTE.get(in_encoding, 0),
+                    samples.dtype)
         x[:, :min(samples.shape[1], row)] = samples[:, :row]
         return torch.from_numpy(x).to(self.device), 0
 

@@ -161,15 +161,24 @@ def test_streaming_wide_matches_oneshot(feed_size):
     assert _render("torch", cfg, tparts) == _render("jax", m.cfg, jparts)
 
 
-@pytest.mark.parametrize("dtype", [np.float32, np.int16, "alaw"])
-def test_pipelined_matches_oneshot(dtype):
+@pytest.mark.parametrize("dtype", [np.float32, np.int16, "alaw",
+                                   "int16-chunks"])
+def test_pipelined_matches_oneshot(monkeypatch, dtype):
     """PipelinedReceiver across segments (a carrier gap spans a segment
     boundary) renders what its one-shot path renders and what the JAX
     package's PipelinedReceiver renders, on float32, int16 and the raw
-    A-law wire."""
+    A-law wire; and on int16 through a stager of 4 KiB chunks, so that
+    each segment's wire spans several chunks and the slots wrap."""
     from minimodem_tpu.ops.device_rx import PipelinedReceiver as JaxPR
+    from minimodem_tpu_torch.ops import device_rx, mega_rx
     from minimodem_tpu_torch.ops.device_rx import PipelinedReceiver
 
+    if dtype == "int16-chunks":
+        dtype = np.int16
+        monkeypatch.setattr(device_rx, "STAGE_CHUNK_BYTES", 4096)
+        stager = device_rx.WireStager(torch.device("cpu"))
+        for mod in (device_rx, mega_rx):
+            monkeypatch.setattr(mod, "wire_stager", lambda dev: stager)
     m, cfg = _cfgs()
     p1 = bytes((33 + (i % 94)) for i in range(400))
     p2 = b"after the gap"
@@ -192,6 +201,8 @@ def test_pipelined_matches_oneshot(dtype):
     ref = _render("jax", m.cfg, JaxPR(m.cfg, segment_len=1 << 16).run(
         samples, 1.5, 2.3, in_encoding=enc))
     assert got == one == ref
+    if device_rx.STAGE_CHUNK_BYTES == 4096:        # every slot was staged
+        assert [c.numel() for c in stager._chunks] == [4096] * 3
     if enc is None:
         assert got[0] == p1 + p2
     else:

@@ -6,9 +6,11 @@ spans nest (the enclosing span is the parent in the profiler's tree, and
 the spans of one call or batch are the tree under its top span), carry
 their counts, set or added from inside, stop at the log's bound, and sit
 in the profiler's Chrome trace as "mm." annotations at the log's times
-and walls.  MegaReceiver.run_events_batch gives rx.wire (with the wire's
-fresh bytes, counted where alloc_wire allocates), rx.upload, rx.enqueue
-and rx.collect a call; DeviceLoopback gives lb.pack and the lb.dispatch
+and walls.  MegaReceiver.run_events_batch gives rx.wire (the wire's bytes
+and chunks through the device's shared stager, and its fresh host bytes
+only where a chunk of that stager is first allocated), rx.upload (the
+totals and carry), rx.enqueue and rx.collect a call, with the card's
+counts on the CPU; DeviceLoopback gives lb.pack and the lb.dispatch
 and lb.collect trees a batch; the results are the same with the profiler
 on and off; and the CLI's --Xprofile trace holds the receiver's spans.
 """
@@ -200,8 +202,10 @@ def test_receiver_call_gives_its_four_spans(bell):
     row = device_rx._round_up_pow2(max(totals) + cfg.nsamples_overscan + 1) \
         + device_rx.geo_from_key(key).halo
     wire = 2 * row * 2                             # two int16 rows
-    assert recs[0].counts == {"bytes": wire, "alloc_bytes": wire}
-    assert recs[1].counts == {"bytes": wire + 2 * 4 + 2 * 8 * 4 + 2 * 4 * 4}
+    # the untraced call above allocated the stager's chunks
+    chunks = -(-wire // device_rx.STAGE_CHUNK_BYTES)
+    assert recs[0].counts == {"bytes": wire, "chunks": chunks}
+    assert recs[1].counts == {"bytes": 2 * 4 + 2 * 8 * 4 + 2 * 4 * 4}
     # a second call: four spans of its own, after the first call's
     with _profiler():
         rx.run_events_batch(wav, totals, 1.5, 2.3)

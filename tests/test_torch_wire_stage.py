@@ -1,16 +1,17 @@
 """The wire's staging (minimodem_tpu_torch/ops/device_rx.py WireStager),
 driven on the CPU with small chunks.
 
-On a card MegaReceiver.run_events_batch builds its wire through the
-device's WireStager: the samples go through reused host chunks, the pad
+Every receiver builds its wire through the device's WireStager, the
+CPU's included: the samples go through reused host chunks, the pad
 columns are set on the device.  Whatever the chunks held before, the
-wire must be byte for byte the host wire of the CPU route: alloc_wire's
-silence with samples[:, :row] copied in.  Cases: int16, float32, u-law
-(its pad byte 0xFF) and a delta-bitpacked row passed through at its own
-width; rows shorter and longer (truncated) than the samples, widths that
-are and are not a multiple of the chunk, B = 1 and B = 16; and a long
-call followed by a short one through the same chunks.  The chunks are
-allocated once (the trace's `alloc_bytes`) and reused after.
+wire must be byte for byte the oracle `_host_wire`: the encoding's
+silence (PAD_BYTE) with samples[:, :row] copied in.  Cases: int16,
+float32, u-law (its pad byte 0xFF) and a delta-bitpacked row passed
+through at its own width; rows shorter and longer (truncated) than the
+samples, widths that are and are not a multiple of the chunk, B = 1 and
+B = 16; and a long call followed by a short one through the same
+chunks.  The chunks are allocated once (the trace's `alloc_bytes`) and
+reused after.
 
 From PARALLEL_FILL_BYTES of samples up the host fills the chunks with
 ATen's copy from a tensor view of the samples (the trace's
@@ -20,6 +21,11 @@ np.frombuffer: no warning, no copy), column-strided, and negative-stride
 (NumPy's fill, `parallel_bytes` 0); at the small chunks above with every
 call through ATen's copy, and at the real 4 MiB chunk and threshold on
 several intra-op threads.
+
+A counting wrapper around the device's stager (device_rx.wire_stager)
+sees the wire of every receiver on the CPU: DeviceReceiver, the
+PipelinedReceiver's every segment (int16 and u-law) and the fleet's
+ShardedReceiver in a world of one; their events equal an unwrapped run's.
 """
 
 import os
@@ -79,9 +85,18 @@ def _source(x, layout):
     return x
 
 
+def _host_wire(x, row, in_encoding=None):
+    """The oracle: [B, row] of the encoding's silence, samples[:, :row]
+    copied in."""
+    want = np.full((x.shape[0], row), device_rx.PAD_BYTE.get(in_encoding, 0),
+                   x.dtype)
+    want[:, :min(x.shape[1], row)] = x[:, :row]
+    return want
+
+
 def _call(stager, enc, b, n, row, seed, layout=None):
-    """One call under a span "call": the stager's wire against alloc_wire
-    + the copy, from x in the given layout; it raises no warning, leaves
+    """One call under a span "call": the stager's wire against the oracle,
+    from x in the given layout; it raises no warning, leaves
     the warning filters as they were and copies no source.  Returns the
     chunk count."""
     x = _samples(enc, b, n, seed)
@@ -90,16 +105,14 @@ def _call(stager, enc, b, n, row, seed, layout=None):
                    "dpack": wirepack.spec_str(3, 8, n, _e_cap(n))}.get(enc)
     if enc == "dpack":
         row = x.shape[1]                # passed through at its own width
-    want = device_rx.alloc_wire((b, row), x.dtype, in_encoding)
-    want[:, :min(x.shape[1], row)] = x[:, :row]
+    want = _host_wire(x, row, in_encoding)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         filters = list(warnings.filters)
         with trace.span("call") as sp:
             tracemalloc.start()
             try:
-                got, chunks = stager.wire(
-                    src, row, device_rx.PAD_BYTE.get(in_encoding, 0))
+                got, chunks = stager.wire(src, row, in_encoding)
                 peak = tracemalloc.get_traced_memory()[1]
             finally:
                 tracemalloc.stop()
@@ -213,8 +226,9 @@ def test_read_only_source_warns_nothing_in_a_fresh_process():
         "                  np.int16).reshape(2, 5000)\n"
         "device_rx.PARALLEL_FILL_BYTES = 0\n"
         "st = device_rx.WireStager(torch.device('cpu'))\n"
-        "got, _ = st.wire(x, 6000, 0)\n"
-        "want = device_rx.alloc_wire((2, 6000), x.dtype)\n"
+        "got, _ = st.wire(x, 6000)\n"
+        "want = np.full((2, 6000), device_rx.PAD_BYTE.get(None, 0),\n"
+        "               x.dtype)\n"
         "want[:, :5000] = x\n"
         "assert got.numpy().tobytes() == want.tobytes()\n"
         "assert warnings.filters == filters\n")
@@ -238,9 +252,8 @@ def test_threads_share_one_stager(monkeypatch):
     def work(seed):
         for i in range(20):
             x = _samples("int16", 3, 300 + seed, seed * 100 + i)
-            got, _ = stager.wire(x, 400 + seed, 0)
-            want = device_rx.alloc_wire((3, 400 + seed), x.dtype)
-            want[:, :x.shape[1]] = x
+            got, _ = stager.wire(x, 400 + seed)
+            want = _host_wire(x, 400 + seed)
             if got.numpy().tobytes() != want.tobytes():
                 wrong.append((seed, i))
         done.append(seed)
@@ -260,3 +273,117 @@ def test_threads_share_one_stager(monkeypatch):
         torch.set_num_threads(intra)
     assert not any(t.is_alive() for t in threads)
     assert sorted(done) == list(range(8)) and wrong == []
+
+
+class _CountingStager:
+    """A device's stager that keeps the shape, row and encoding of each
+    wire it stages."""
+
+    def __init__(self, stager):
+        self.stager, self.wires = stager, []
+
+    def wire(self, samples, row, in_encoding=None):
+        self.wires.append((samples.shape, row, in_encoding))
+        return self.stager.wire(samples, row, in_encoding)
+
+    def join(self, wire):
+        self.stager.join(wire)
+
+
+def _bell202(texts, enc):
+    """Bell-202 waves of the texts as int16, or as the u-law wire."""
+    from minimodem_tpu_torch.bench import _encode_wire
+    from minimodem_tpu_torch.models.modem import FskModem
+
+    m = FskModem("1200", device="cpu")
+    waves = [m.modulate(t) for t in texts]
+    if enc:
+        return m.cfg, [_encode_wire(w * 0.5, enc) for w in waves]
+    return m.cfg, [np.clip(np.rint(w * 16000), -32768,
+                           32767).astype(np.int16) for w in waves]
+
+
+@pytest.fixture
+def world1_cpu():
+    """A world of this one process on the CPU (gloo, a localhost store),
+    torn down after the test."""
+    import torch.distributed as dist
+
+    from minimodem_tpu_torch.parallel.sharding import make_mesh
+
+    made = not dist.is_initialized()
+    yield make_mesh(device="cpu")
+    if made:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("receiver", ["device", "pipelined-int16",
+                                      "pipelined-ulaw", "fleet"])
+def test_every_receiver_stages_its_wire(monkeypatch, request, receiver):
+    """Each receiver's wire goes through the device's shared stager on the
+    CPU: one wire a DeviceReceiver call and a fleet rank's block (at the
+    rank's width), one a PipelinedReceiver segment across at least 3
+    segments (at its scored length + halo), in the call's encoding; the
+    events equal an unwrapped run's."""
+    from minimodem_tpu_torch.ops import mega_rx
+
+    enc = "ulaw" if receiver.endswith("ulaw") else None
+    texts = [bytes(33 + (i * 7 + j) % 94 for i in range(60 + 25 * j))
+             for j in range(3)]
+    if receiver.startswith("pipelined"):
+        texts = [bytes(33 + i % 94 for i in range(300)), b"past the gap"]
+    cfg, waves = _bell202(texts, enc)
+    if receiver.startswith("pipelined"):
+        silence = np.full(48000, device_rx.PAD_BYTE.get(enc, 0),
+                          waves[0].dtype)
+        x = np.concatenate([waves[0], silence, waves[1]])
+        pr = device_rx.PipelinedReceiver(cfg, segment_len=1 << 16,
+                                         device="cpu")
+
+        def run():
+            return list(pr.run(x, 1.5, 2.3, in_encoding=enc))
+    else:
+        x = np.zeros((len(waves), max(map(len, waves))), waves[0].dtype)
+        for i, w in enumerate(waves):
+            x[i, :len(w)] = w
+        totals = [len(w) for w in waves]
+        if receiver == "fleet":
+            from minimodem_tpu_torch.parallel.service import ShardedReceiver
+
+            rx = ShardedReceiver(cfg, request.getfixturevalue("world1_cpu"))
+        else:
+            rx = device_rx.DeviceReceiver(cfg, device="cpu")
+
+        def run():
+            return rx.run_events_batch(x, totals, 1.5, 2.3,
+                                       in_encoding=enc)[0]
+
+    want = run()
+    real, seen = device_rx.wire_stager, []
+
+    def counting(dev):
+        seen.append(_CountingStager(real(dev)))
+        return seen[-1]
+
+    monkeypatch.setattr(device_rx, "wire_stager", counting)
+    monkeypatch.setattr(mega_rx, "wire_stager", counting)
+    got = run()
+    wires = [w for s in seen for w in s.wires]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+    assert all(e == enc for _, _, e in wires)
+    if receiver.startswith("pipelined"):
+        # every segment but the tail: segment_len samples at one row
+        assert len(wires) == len(got) >= 3
+        assert {w[:2] for w in wires[:-1]} == {((1, pr.segment_len),
+                                               wires[0][1])}
+        assert wires[-1][0][1] <= pr.segment_len
+        assert sum(len(g[2]) for g in got) > 0
+    else:
+        assert len(wires) == 1 and wires[0][0] == x.shape
+        halo = device_rx.geo_from_key(device_rx.device_rx_key(cfg)).halo
+        assert wires[0][1] == device_rx._round_up_pow2(
+            max(totals) + cfg.nsamples_overscan + 1) + halo
+        assert [bytes(g[2]) for g in got] == texts
