@@ -17,29 +17,48 @@
 //      ascending-j __fmaf_rn chain of the plain version, so the planes
 //      match it bit for bit;
 //   3. band magnitudes sqrtf(c*c + s*s) * scal (pallas_score.py:228-231),
-//      the strict bit mark > space, the signed signal plane ss (the sign
-//      carries the bit) and the noise plane gated at FLT_EPSILON, both into
-//      shared memory in a phase-major layout (sample s at (s % 4) * P +
-//      s / 4), so that stage 2's four-offsets-per-thread reads are
-//      conflict-free;
-//   4. pass 1 (comb sums over the n_bits taps at bit_begin[k]) and pass 2
-//      (divergence), each sum in ascending k as before, four consecutive
-//      offsets per thread, stored as 16-byte vectors along t.
+//      the strict bit mark > space, the signed signal (the sign carries
+//      the bit) and the noise gated at FLT_EPSILON, stored as one (signal,
+//      noise) pair an offset in a phase-major plane (offset s at (s % 4) *
+//      P + s / 4), so that stage 2's reads are conflict-free;
+//   4. stage 2: pass 1 (comb sums over the n_bits taps at bit_begin[k])
+//      and pass 2 (divergence), each sum in ascending k as before.  The
+//      kernel is built for three buckets of bit counts, which the launcher
+//      picks by n_bits: <= 8 (four offsets a thread) and 9..16 (one; every
+//      preset is in one of the two), where pass 1 unrolls, builds the bits
+//      with constant shifts and holds each tap's signed signal in
+//      registers for pass 2; 17..32 (four), where pass 2 reads the taps
+//      again.  Each tap divides
+//      through the reciprocal of its bit's average, hoisted once an
+//      offset, by Markstein's step (div_rcp: the correctly rounded
+//      quotient, as __fdiv_rn gives it); the averages, dv and ampl divide
+//      by a bit count through a table of RN(1 / k).  A per-offset guard
+//      takes the IEEE division where a value lies outside the step's
+//      window (silence, overflow, NaN).
 //
-// Bound: 4 * nb FMAs per scored offset (Bell-202 at 48 kHz: 160, ~0.67
-// GFLOP per 2^21-sample segment, 10 us at the FP32 peak) against ~16 bytes
-// of device memory per offset (33.6 MB, 10 us at the HBM rate): both
-// bounds meet.  The first port read the basis from shared memory for every
-// FMA (shared-memory bound) and recomputed a 20% halo: 0.1075 ms per
-// segment.  The register blocking cuts shared-memory traffic per FMA by
-// ~6x, whole blocks of 8 taps run unguarded (only the last nb % 8 taps
-// test j < nb), the tile (ops/fused_score.py pick_tile: at least 8 *
-// max_begin, 4096 for Bell-202) cuts the halo to ~10% while 512 CTAs of
-// ~55 KB fill the 132 SMs in one wave, and stage 2 reads each tap's four
-// phase-major offsets as one int4 and counts marks with a popcount.  What
-// remains is stage 2's arithmetic: an IEEE division per tap in pass 2,
-// which exactness keeps.  Measured (chip_smoke.py; NVIDIA H100 80GB HBM3,
-// 700.00 W): 0.063 ms per segment.
+// Bound: 4 * nb FMAs per scored offset (Bell-202 at 48 kHz: 160, ~0.67 GFLOP
+// per 2^21-sample segment, 10 us at the FP32 peak) against ~16 bytes of device
+// memory per offset (33.6 MB, 10 us at the HBM rate). The register blocking of
+// stage 1 cuts shared-memory traffic per FMA by ~6x, whole blocks of 8 taps
+// run unguarded (only the last nb % 8 taps test j < nb), and the tile
+// (ops/fused_score.py pick_tile: at least 8 * max_begin, 4096 for Bell-202)
+// cuts the halo to ~10% while CTAs of ~55 KB sit 4 to an SM. What bounds K1 is
+// the issue rate of its instructions: ~4.4 a tap and offset in stage 1's loop
+// (scripts/k1_ab.py census) and, before the step, stage 2's two tap loops of
+// 107 and 183 instructions a pair of taps for four offsets, 8 MUFU reciprocals
+// behind __fdiv_rn's range checks in the second: 16 an offset with the
+// averages and the epilogue. At the headline loopback buffer [128, 3146168]
+// (scripts/k1_ab.py; NVIDIA H100 80GB HBM3, 700.00 W) K1 took 11.75 ms alone
+// and 11.73 ms queued; stage 1 with the planes' store alone 4.98 ms, so stage
+// 2 took ~6.75 ms (58%), its IEEE divisions ~3.56 ms (each a multiply: 8.17
+// ms). With the step and the held taps: 9.08 ms alone, 9.07 ms queued, stage 2
+// ~4.33 ms (48%); Bell-202's kernel at 63 registers before and after, 4 CTAs
+// an SM; 3 MUFU operations an offset in stage 2 (two reciprocals, the SNR's
+// division); 1.04% of the buffer's offsets (the silent tails past each stream)
+// take the IEEE division. One offset a thread suits Bell-202 (two: 107
+// registers, 2 CTAs an SM, 10.78 ms against 9.43 in one call) and four RTTY,
+// alone on its SM at 121 registers (57.22 ms at skimmer32's shape against one
+// offset's 59.46 and 57.75 before).
 //
 // Built without --use_fast_math: the SNR relies on IEEE x/0 = inf and
 // 0/0 = nan (pallas_score.py:377), and sqrtf / division must round
@@ -47,6 +66,7 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 #include "correlate.cuh"
 
@@ -56,6 +76,11 @@ using corr::kR;
 
 constexpr int kThreads = 256;
 constexpr float kFltEpsilon = 1.1920928955078125e-07f;
+// The window of Markstein's step (div_rcp): every divisor of a tap lies in
+// it, and every numerator of a division by a bit count is 0 or lies in it
+// (tests/test_torch_fused_score_div.py holds the step to __fdiv_rn there).
+constexpr float kRcpLo = 0x1p-60f;
+constexpr float kRcpHi = 0x1p+60f;
 
 // band magnitudes -> (signed signal, gated noise) of one offset
 __device__ __forceinline__ void magnitudes(const float* c, float scal,
@@ -73,6 +98,222 @@ __device__ __forceinline__ void magnitudes(const float* c, float scal,
     noise = n > kFltEpsilon ? n : 0.0f;
 }
 
+__device__ __forceinline__ bool in_window(float x) {
+    return x >= kRcpLo && x <= kRcpHi;       // false for NaN
+}
+
+// a / b as __fdiv_rn rounds it, from y = RN(1 / b): q = RN(a y) lies within
+// an ulp of a / b, r = a - q b is exact, and RN(q + r y) is the correctly
+// rounded quotient (Markstein's theorem), as long as no step under- or
+// overflows, which the callers' windows ensure.  Three FP32 operations in
+// place of __fdiv_rn's reciprocal, refinement, range check and branch.
+__device__ __forceinline__ float div_rcp(float a, float b, float y) {
+    const float q = __fmul_rn(a, y);
+    return __fmaf_rn(__fmaf_rn(-q, b, a), y, q);
+}
+
+// a / k for a bit count k in [1, 32] and y = RN(1 / k): the step where a is
+// 0 or in the window, else the IEEE division
+__device__ __forceinline__ float div_count(float a, float k, float y) {
+    return a == 0.0f || in_window(a) ? div_rcp(a, k, y) : __fdiv_rn(a, k);
+}
+
+// one offset's comb sums (pass 1), each in ascending k
+struct Comb {
+    float tsig, tnoise, msig;
+    unsigned bits;
+};
+
+__device__ __forceinline__ void comb_tap(Comb& c, float2 sn, int k) {
+    const float sb = fabsf(sn.x);
+    c.tsig = __fadd_rn(c.tsig, sb);
+    c.tnoise = __fadd_rn(c.tnoise, sn.y);
+    if (sn.x > 0.0f) {
+        c.msig = __fadd_rn(c.msig, sb);
+        c.bits |= 1u << k;
+    }
+}
+
+// one offset's averages (guarded like C, reference: src/fsk.c:298-301),
+// their reciprocals, and whether each of its taps may divide through them:
+// every |v| <= tsig <= kRcpHi and each average a tap divides by in the
+// window.  Then a tap's numerator ||v| - own| is 0 or at least own 2^-25
+// (Sterbenz where |v| is within a factor 2 of own), so no step under- or
+// overflows.
+struct Own {
+    float mark, space, y_mark, y_space;
+    bool fast;
+};
+
+__device__ __forceinline__ Own averages(const Comb& c, int n_bits,
+                                        float n_bits_f, const float* rcp_n) {
+    const int n_mark = __popc(c.bits);
+    const float n_mark_f = (float)n_mark;
+    const float n_space_f = __fsub_rn(n_bits_f, n_mark_f);
+    const float space_sig = __fsub_rn(c.tsig, c.msig);
+    Own o;
+    o.mark = n_mark_f > 0.0f ? div_count(c.msig, n_mark_f, rcp_n[n_mark])
+                             : 0.0f;
+    o.space = n_space_f > 0.0f
+                  ? div_count(space_sig, n_space_f, rcp_n[n_bits - n_mark])
+                  : 0.0f;
+    const bool mark_ok = in_window(o.mark), space_ok = in_window(o.space);
+    o.fast = c.tsig <= kRcpHi && (n_mark == 0 || mark_ok) &&
+             (n_mark == n_bits || space_ok);
+    o.y_mark = __frcp_rn(mark_ok ? o.mark : 1.0f);
+    o.y_space = __frcp_rn(space_ok ? o.space : 1.0f);
+    return o;
+}
+
+// one tap's divergence term |(|v| - own)| / own, own the average of the
+// tap's bit (v > 0: mark); kFast: through the hoisted reciprocal
+template <bool kFast>
+__device__ __forceinline__ float tap_div(float v, const Own& o) {
+    const bool mark = v > 0.0f;
+    const float own = mark ? o.mark : o.space;
+    const float a = fabsf(__fsub_rn(fabsf(v), own));
+    if constexpr (kFast)
+        return div_rcp(a, own, mark ? o.y_mark : o.y_space);
+    else
+        return __fdiv_rn(a, own);
+}
+
+// kQ consecutive int32 words at p (p aligned to them)
+template <int kQ>
+__device__ __forceinline__ void store_q(int* p, const int* v) {
+    if constexpr (kQ == 4)
+        *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+    else if constexpr (kQ == 2)
+        *reinterpret_cast<int2*>(p) = make_int2(v[0], v[1]);
+    else
+        *p = v[0];
+}
+
+// Stage 2 over the CTA's n_t offsets, kQ consecutive offsets a thread: the
+// warps of a step take 32 consecutive quads u and the same kQ phases g kQ
+// .. g kQ + kQ - 1 of them, offsets t = 4u + g kQ + j, so a warp's reads
+// of the phase-major plane sn (signed signal, gated noise) stay
+// conflict-free; tap k of offset 4u + q sits at sn[offq[k].q + u].
+// kHold: frame bits kMinBits..kMaxBits, pass 1 unrolled, each tap's
+// signed signal held in registers for pass 2; otherwise (up to 32 bits)
+// pass 2 reads the taps again from sn.
+template <int kMinBits, int kMaxBits, int kQ, bool kHold>
+__device__ __forceinline__ void stage2(
+    const float2* sn, const int4* offq, const float* rcp_n, int n_bits,
+    int n_t, int tid, int* orow, long long plane, bool vec_ok,
+    unsigned d_mask, unsigned d_val, unsigned s_mask, unsigned s_val,
+    int n_planes) {
+    constexpr int kG = 4 / kQ;                    // thread groups a quad
+    const float n_bits_f = (float)n_bits;
+    const float y_nb = rcp_n[n_bits];             // RN(1 / n_bits)
+    const int n_w = (n_t + 127) / 128 * 32 * kG;
+    for (int w = tid; w < n_w; w += kThreads) {
+        const int g = (w >> 5) % kG;
+        const int u = w / (32 * kG) * 32 + (w & 31);
+        const int t = 4 * u + g * kQ;             // the thread's first offset
+        if (t >= n_t) continue;
+        const float2* su = sn + u;
+        const int* og = reinterpret_cast<const int*>(offq) + g * kQ;
+        Comb c[kQ];
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) c[j] = Comb{0.0f, 0.0f, 0.0f, 0u};
+        float v[kHold ? kMaxBits : 1][kQ];        // held taps (signed)
+        if constexpr (kHold) {
+#pragma unroll
+            for (int k = 0; k < kMaxBits; ++k) {
+                if (k < kMinBits || k < n_bits) {
+#pragma unroll
+                    for (int j = 0; j < kQ; ++j) {
+                        const float2 p = su[og[4 * k + j]];
+                        v[k][j] = p.x;
+                        comb_tap(c[j], p, k);
+                    }
+                }
+            }
+        } else {
+            for (int k = 0; k < n_bits; ++k) {
+#pragma unroll
+                for (int j = 0; j < kQ; ++j)
+                    comb_tap(c[j], su[og[4 * k + j]], k);
+            }
+        }
+        Own o[kQ];
+        bool fast = true;
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) {
+            o[j] = averages(c[j], n_bits, n_bits_f, rcp_n);
+            fast = fast && o[j].fast;
+        }
+        // pass 2: divergence (reference CONFIDENCE_ALGO 6), ascending k
+        float div[kQ];
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) div[j] = 0.0f;
+        auto pass2 = [&](auto fast_tag) {
+            constexpr bool kFast = decltype(fast_tag)::value;
+            if constexpr (kHold) {
+#pragma unroll
+                for (int k = 0; k < kMaxBits; ++k) {
+                    if (k < kMinBits || k < n_bits) {
+#pragma unroll
+                        for (int j = 0; j < kQ; ++j)
+                            div[j] = __fadd_rn(div[j],
+                                               tap_div<kFast>(v[k][j], o[j]));
+                    }
+                }
+            } else {
+                for (int k = 0; k < n_bits; ++k) {
+#pragma unroll
+                    for (int j = 0; j < kQ; ++j)
+                        div[j] = __fadd_rn(
+                            div[j], tap_div<kFast>(su[og[4 * k + j]].x, o[j]));
+                }
+            }
+        };
+        if (fast)
+            pass2(std::true_type{});
+        else
+            pass2(std::false_type{});
+        int cd[kQ], ad[kQ], bw[kQ], cs[kQ], as[kQ];
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) {
+            const float dv =
+                div_count(__fmul_rn(div[j], 2.0f), n_bits_f, y_nb);
+            const float snr = __fdiv_rn(c[j].tsig, c[j].tnoise);  // x/0 = inf
+            const float conf = __fmul_rn(snr, __fsub_rn(1.0f, dv));
+            const float ampl = div_count(c[j].tsig, n_bits_f, y_nb);
+            const bool ok_d = ((c[j].bits ^ d_val) & d_mask) == 0u;
+            const bool ok_s = ((c[j].bits ^ s_val) & s_mask) == 0u;
+            cd[j] = __float_as_int(ok_d ? conf : 0.0f);
+            ad[j] = __float_as_int(ok_d ? ampl : 0.0f);
+            bw[j] = (int)c[j].bits;
+            cs[j] = __float_as_int(ok_s ? conf : 0.0f);
+            as[j] = __float_as_int(ok_s ? ampl : 0.0f);
+        }
+        if (vec_ok && t + kQ <= n_t) {
+            store_q<kQ>(orow + t, cd);
+            store_q<kQ>(orow + plane + t, ad);
+            store_q<kQ>(orow + 2 * plane + t, bw);
+            if (n_planes == 5) {
+                store_q<kQ>(orow + 3 * plane + t, cs);
+                store_q<kQ>(orow + 4 * plane + t, as);
+            }
+        } else {
+#pragma unroll
+            for (int j = 0; j < kQ; ++j) {
+                if (t + j >= n_t) break;
+                orow[t + j] = cd[j];
+                orow[plane + t + j] = ad[j];
+                orow[2 * plane + t + j] = bw[j];
+                if (n_planes == 5) {
+                    orow[3 * plane + t + j] = cs[j];
+                    orow[4 * plane + t + j] = as[j];
+                }
+            }
+        }
+    }
+}
+
+template <int kMinBits, int kMaxBits, int kQ, bool kHold>
 __global__ void __launch_bounds__(kThreads)
 fused_score_kernel(const float* __restrict__ x, long long x_stride,
                    int t_len, const float* __restrict__ basis, int nb,
@@ -82,6 +323,7 @@ fused_score_kernel(const float* __restrict__ x, long long x_stride,
                    int n_planes, int tile, int* __restrict__ out) {
     extern __shared__ __align__(16) float smem[];
     __shared__ uint64_t bar;
+    __shared__ float rcp_n[33];                   // RN(1 / k), k <= 32
     const int tid = threadIdx.x;
     const int b = blockIdx.y;
     const int t0 = blockIdx.x * tile;
@@ -94,16 +336,15 @@ fused_score_kernel(const float* __restrict__ x, long long x_stride,
 
     float4* bs = reinterpret_cast<float4*>(smem);     // [nb8] basis taps
     float* xs = smem + 4 * nb8;                       // [span8 + nb8] audio
-    float* ss = xs + span8 + nb8;                     // [span8] signal
-    float* ng = ss + span8;                           // [span8] noise
-    int4* offq = reinterpret_cast<int4*>(ng + span8); // [n_bits]
+    float2* sn = reinterpret_cast<float2*>(xs + span8 + nb8);  // [span8]
+    int4* offq = reinterpret_cast<int4*>(sn + span8); // [n_bits]
 
-    // ---- stage 0: the audio (by TMA where aligned), the basis and the
-    // bit offsets ----
+    // ---- stage 0: the audio (by TMA where aligned), the basis, the bit
+    // offsets and the reciprocals of the bit counts ----
     const float* xrow = x + (long long)b * x_stride + t0;
     const bool tma = corr::stage_audio(xs, xrow, x_cnt, &bar, tid, kThreads);
     corr::stage_basis(bs, basis, nb, tid, kThreads);
-    // tap k of offset 4u + q sits at offq[k].q + u in the phase-major planes
+    // tap k of offset 4u + q sits at offq[k].q + u in the phase-major plane
     for (int k = tid; k < n_bits; k += kThreads) {
         const int bk = bit_begin[k];
         offq[k] = make_int4((bk & 3) * ph + (bk >> 2),
@@ -111,124 +352,53 @@ fused_score_kernel(const float* __restrict__ x, long long x_stride,
                             ((bk + 2) & 3) * ph + ((bk + 2) >> 2),
                             ((bk + 3) & 3) * ph + ((bk + 3) >> 2));
     }
+    if (tid <= 32) rcp_n[tid] = tid ? __frcp_rn((float)tid) : 0.0f;
     __syncthreads();
     if (tma) sm90::mbar_wait(&bar, 0);
 
-    // ---- stage 1: correlation -> magnitudes -> ss / ng planes ----
+    // ---- stage 1: correlation -> magnitudes -> (signal, noise) plane ----
     const int n_task = (s_cnt + kR - 1) / kR;
     for (int task = tid; task < n_task; task += kThreads) {
         const int i0 = task * kR;
         float acc[kR][4];
         corr::correlate8(acc, xs + i0, bs, nb);
-        // offsets i0 + q and i0 + 4 + q share phase q: two adjacent words
+        // offsets i0 + q and i0 + 4 + q share phase q: adjacent pairs
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
             float s0, n0, s1, n1;
             magnitudes(acc[q], scal, s0, n0);
             magnitudes(acc[q + 4], scal, s1, n1);
-            const int at = q * ph + i0 / 4;
-            *reinterpret_cast<float2*>(ss + at) = make_float2(s0, s1);
-            *reinterpret_cast<float2*>(ng + at) = make_float2(n0, n1);
+            *reinterpret_cast<float4*>(sn + q * ph + i0 / 4) =
+                make_float4(s0, n0, s1, n1);
         }
     }
     __syncthreads();
 
-    // ---- stage 2: comb sums (pass 1) and divergence (pass 2), offsets
-    // 4u .. 4u + 3 per thread ----
-    const float n_bits_f = (float)n_bits;
+    // ---- stage 2: comb sums (pass 1) and divergence (pass 2) ----
     const long long plane = (long long)t_len;
-    int* orow = out + (long long)b * n_planes * plane + t0;
-    const bool vec_ok = (t_len & 3) == 0;
-    const int n_u = (n_t + 3) / 4;
-    for (int u = tid; u < n_u; u += kThreads) {
-        float tsig[4], tnoise[4], msig[4];
-        unsigned bits[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            tsig[q] = tnoise[q] = msig[q] = 0.0f;
-            bits[q] = 0u;
-        }
-        for (int k = 0; k < n_bits; ++k) {
-            const int4 o = offq[k];
-            const int at[4] = {o.x + u, o.y + u, o.z + u, o.w + u};
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                const float v = ss[at[q]];
-                const float sb = fabsf(v);
-                tsig[q] = __fadd_rn(tsig[q], sb);
-                tnoise[q] = __fadd_rn(tnoise[q], ng[at[q]]);
-                if (v > 0.0f) {
-                    msig[q] = __fadd_rn(msig[q], sb);
-                    bits[q] |= 1u << k;
-                }
-            }
-        }
-        float avg_mark[4], avg_space[4], div[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            const float n_mark_f = (float)__popc(bits[q]);  // marks counted
-            const float n_space_f = __fsub_rn(n_bits_f, n_mark_f);
-            const float space_sig = __fsub_rn(tsig[q], msig[q]);
-            // averages guarded like C (reference: src/fsk.c:298-301)
-            avg_mark[q] = n_mark_f > 0.0f ? __fdiv_rn(msig[q], n_mark_f) : 0.0f;
-            avg_space[q] =
-                n_space_f > 0.0f ? __fdiv_rn(space_sig, n_space_f) : 0.0f;
-            div[q] = 0.0f;
-        }
-        for (int k = 0; k < n_bits; ++k) {
-            const int4 o = offq[k];
-            const int at[4] = {o.x + u, o.y + u, o.z + u, o.w + u};
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                const float v = ss[at[q]];
-                const float own = v > 0.0f ? avg_mark[q] : avg_space[q];
-                div[q] = __fadd_rn(
-                    div[q], __fdiv_rn(fabsf(__fsub_rn(fabsf(v), own)), own));
-            }
-        }
-        int cd[4], ad[4], cs[4], as[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            const float dv = __fdiv_rn(__fmul_rn(div[q], 2.0f), n_bits_f);
-            const float snr = __fdiv_rn(tsig[q], tnoise[q]);  // x/0 = inf
-            const float conf = __fmul_rn(snr, __fsub_rn(1.0f, dv));
-            const float ampl = __fdiv_rn(tsig[q], n_bits_f);
-            const bool ok_d = ((bits[q] ^ d_val) & d_mask) == 0u;
-            const bool ok_s = ((bits[q] ^ s_val) & s_mask) == 0u;
-            cd[q] = __float_as_int(ok_d ? conf : 0.0f);
-            ad[q] = __float_as_int(ok_d ? ampl : 0.0f);
-            cs[q] = __float_as_int(ok_s ? conf : 0.0f);
-            as[q] = __float_as_int(ok_s ? ampl : 0.0f);
-        }
-        const int t = 4 * u;
-        if (vec_ok && t + 4 <= n_t) {
-            *reinterpret_cast<int4*>(orow + t) =
-                make_int4(cd[0], cd[1], cd[2], cd[3]);
-            *reinterpret_cast<int4*>(orow + plane + t) =
-                make_int4(ad[0], ad[1], ad[2], ad[3]);
-            *reinterpret_cast<int4*>(orow + 2 * plane + t) =
-                make_int4((int)bits[0], (int)bits[1], (int)bits[2],
-                          (int)bits[3]);
-            if (n_planes == 5) {
-                *reinterpret_cast<int4*>(orow + 3 * plane + t) =
-                    make_int4(cs[0], cs[1], cs[2], cs[3]);
-                *reinterpret_cast<int4*>(orow + 4 * plane + t) =
-                    make_int4(as[0], as[1], as[2], as[3]);
-            }
-        } else {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                if (t + q >= n_t) break;
-                orow[t + q] = cd[q];
-                orow[plane + t + q] = ad[q];
-                orow[2 * plane + t + q] = (int)bits[q];
-                if (n_planes == 5) {
-                    orow[3 * plane + t + q] = cs[q];
-                    orow[4 * plane + t + q] = as[q];
-                }
-            }
-        }
+    stage2<kMinBits, kMaxBits, kQ, kHold>(
+        sn, offq, rcp_n, n_bits, n_t, tid,
+        out + (long long)b * n_planes * plane + t0, plane, (t_len & 3) == 0,
+        d_mask, d_val, s_mask, s_val, n_planes);
+}
+
+template <int kMinBits, int kMaxBits, int kQ, bool kHold>
+int launch(const float* x, long long x_stride, int batch, int t_len,
+           const float* basis, int nb, const int* bit_begin, int n_bits,
+           int max_begin, float scal, unsigned d_mask, unsigned d_val,
+           unsigned s_mask, unsigned s_val, int n_planes, int tile,
+           int smem_bytes, int* out, cudaStream_t stream) {
+    auto kernel = fused_score_kernel<kMinBits, kMaxBits, kQ, kHold>;
+    if (smem_bytes > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        if (e != cudaSuccess) return (int)e;
     }
+    dim3 grid((t_len + tile - 1) / tile, batch);
+    kernel<<<grid, kThreads, smem_bytes, stream>>>(
+        x, x_stride, t_len, basis, nb, bit_begin, n_bits, max_begin, scal,
+        d_mask, d_val, s_mask, s_val, n_planes, tile, out);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -244,18 +414,20 @@ extern "C" int mm_fused_score(const void* x, long long x_stride, int batch,
     // bit mask 32 bits
     if (tile % 8 != 0 || n_bits > 32 || n_bits < 1 || nb < 1)
         return (int)cudaErrorInvalidValue;
-    if (smem_bytes > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            fused_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            smem_bytes);
-        if (e != cudaSuccess) return (int)e;
-    }
-    dim3 grid((t_len + tile - 1) / tile, batch);
-    fused_score_kernel<<<grid, kThreads, smem_bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), x_stride, t_len,
-        static_cast<const float*>(basis), nb,
-        static_cast<const int*>(bit_begin), n_bits, max_begin, scal, d_mask,
-        d_val, s_mask, s_val, n_planes, tile, static_cast<int*>(out));
-    return (int)cudaGetLastError();
+    // stage 2's bucket by the frame's bit count (ops/fused_score.py
+    // REG_BITS): each offset's taps held in registers up to 16 bits; four
+    // offsets a thread up to 8 (RTTY's 159 KB CTA sits alone on an SM and
+    // wants the parallelism) and past 16, one from 9 to 16 (Bell-202's 55
+    // KB CTAs sit 4 to an SM at its 63 registers)
+    auto go = [&](auto kernel_launch) {
+        return kernel_launch(
+            static_cast<const float*>(x), x_stride, batch, t_len,
+            static_cast<const float*>(basis), nb,
+            static_cast<const int*>(bit_begin), n_bits, max_begin, scal,
+            d_mask, d_val, s_mask, s_val, n_planes, tile, smem_bytes,
+            static_cast<int*>(out), static_cast<cudaStream_t>(stream));
+    };
+    if (n_bits <= 8) return go(launch<1, 8, 4, true>);
+    if (n_bits <= 16) return go(launch<9, 16, 1, true>);
+    return go(launch<17, 32, 4, false>);
 }

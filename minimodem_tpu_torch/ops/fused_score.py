@@ -31,10 +31,20 @@ from .demod import DemodGeometry, correlate, make_basis, score_frame_channels
 # audio plus its halo and two float planes of (tile + max_begin) in shared
 # memory, so long-bit geometries take smaller tiles
 _TILES = (4096, 2048, 1024, 512, 256)
-_SMEM_MAX = 227 * 1024
+# a CTA's 227 KB less the kernel's static shared memory (its barrier and
+# the reciprocals of the bit counts)
+_SMEM_MAX = 227 * 1024 - 256
 # a tile of at least this many times max_begin recomputes at most 1/8 of
 # its offsets as halo
 _HALO_RATIO = 8
+# stage 2 holds each offset's frame taps in registers up to this many frame
+# bits (csrc/fused_score.cu mm_fused_score's buckets: <= 8, four offsets a
+# thread, and 9..16, one); longer frames read them again from shared memory
+REG_BITS = 16
+# stage 2 divides through a hoisted reciprocal (Markstein's step) where
+# its divisors and numerators lie in this window, else by IEEE division
+# (csrc/fused_score.cu kRcpLo, kRcpHi)
+RCP_WINDOW = (2.0 ** -60, 2.0 ** 60)
 
 
 def plane_rows(geo: DemodGeometry) -> int:
@@ -82,17 +92,20 @@ def pick_tile(geo: DemodGeometry):
 def launch_counts(geo: DemodGeometry, rows: int, t_len: int) -> dict:
     """The work of one K1 launch over `rows` streams of `t_len` scored
     offsets, as csrc/fused_score.cu does it: `k1_offsets`, the offsets
-    scored (rows x t_len), and `k1_correlated`, the offsets stage 1
+    scored (rows x t_len); `k1_correlated`, the offsets stage 1
     correlates (each CTA its n_t <= tile offsets plus max_begin of halo,
     in whole tasks of 8: rows x the sum over CTAs of round8(n_t +
-    max_begin)).  RTTY at 48 kHz: tile 4096, max_begin 7392, 2.80
-    correlated a scored offset; Bell-202: 4096, 400, 1.10."""
+    max_begin)); `k1_reg_offsets`, the offsets whose stage 2 holds their
+    taps in registers (rows x t_len up to REG_BITS frame bits, else 0).
+    RTTY at 48 kHz: tile 4096, max_begin 7392, 2.80 correlated a scored
+    offset; Bell-202: 4096, 400, 1.10."""
     tile = pick_tile(geo)
     full, last = divmod(t_len, tile)
     per_row = full * _round8(tile + geo.max_begin)
     if last:
         per_row += _round8(last + geo.max_begin)
-    return {"k1_offsets": rows * t_len, "k1_correlated": rows * per_row}
+    return {"k1_offsets": rows * t_len, "k1_correlated": rows * per_row,
+            "k1_reg_offsets": rows * t_len if geo.n_bits <= REG_BITS else 0}
 
 
 def serves(geo: DemodGeometry) -> bool:

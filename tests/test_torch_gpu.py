@@ -39,33 +39,136 @@ def _modem(mode):
 
 
 def _noisy(mode, seed, n_bytes=40):
+    """(the mode's config, its keyed text under uniform noise); Caller-ID,
+    which has no TX, keyed by Bell-202 (its tones and rate)."""
     rng = np.random.default_rng(seed)
     m = _modem(mode)
+    tx = _modem("1200") if mode == "callerid" else m
     text = rng.integers(32, 127, size=n_bytes, dtype=np.uint8).tobytes()
-    wav = m.modulate(text.upper() if mode == "rtty" else text)
+    wav = tx.modulate(text.upper() if mode in ("rtty", "tdd") else text)
     wav = wav + (rng.random(wav.size, dtype=np.float32)
                  - np.float32(0.5)) * np.float32(0.6)
     return m.cfg, wav.astype(np.float32)
 
 
-@pytest.mark.parametrize("mode", ["1200", "300", "same", "rtty"])
-def test_fused_kernel_equals_plain(cuda, mode):
-    from minimodem_tpu_torch.ops.device_rx import device_rx_key, geo_from_key
+def _k1_equals_plain(cuda, geo, x, t_total):
+    """K1 on x [B, t_total + halo] against score_planes_plain on the card,
+    bit for bit, one launch; -> the planes."""
     from minimodem_tpu_torch.ops.fused_score import (FusedScorer,
                                                      score_planes_plain)
 
-    cfg, wav = _noisy(mode, 1)
-    scorer = FusedScorer(geo_from_key(device_rx_key(cfg)))
-    t_total = 1 << 17
-    x = np.zeros((2, t_total + scorer.geo.halo), np.float32)
-    x[0, :min(len(wav), x.shape[1])] = wav[:x.shape[1]]
-    x[1] = np.random.default_rng(2).standard_normal(x.shape[1])
-    xt = torch.from_numpy(x).to(cuda)
+    scorer = FusedScorer(geo)
+    xt = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(cuda)
     launches = FusedScorer.launches
     k = scorer(xt, t_total)
     assert FusedScorer.launches == launches + 1
-    p = score_planes_plain(xt, scorer.geo, t_total)
+    p = score_planes_plain(xt, geo, t_total)
     np.testing.assert_array_equal(k.cpu().numpy(), p.cpu().numpy())
+    return xt
+
+
+@pytest.mark.parametrize("mode", ["1200", "300", "same", "rtty", "tdd",
+                                  "callerid"])
+def test_fused_kernel_equals_plain(cuda, mode):
+    """Every preset K1 serves, bit for bit: stage 2's bucket of <= 8 frame
+    bits (SAME, RTTY, TDD) and of 9..16 (Bell-202, 300 baud, Caller-ID)."""
+    from minimodem_tpu_torch.ops.device_rx import device_rx_key, geo_from_key
+
+    cfg, wav = _noisy(mode, 1)
+    geo = geo_from_key(device_rx_key(cfg))
+    t_total = 1 << 17
+    x = np.zeros((2, t_total + geo.halo), np.float32)
+    x[0, :min(len(wav), x.shape[1])] = wav[:x.shape[1]]
+    x[1] = np.random.default_rng(2).standard_normal(x.shape[1])
+    _k1_equals_plain(cuda, geo, x, t_total)
+
+
+def _wide_geometry(n_bits):
+    """Bell-202's geometry with its frame grown to n_bits (more stop bits,
+    marks, at its bit spacing): a DemodGeometry no preset has."""
+    import dataclasses
+
+    from minimodem_tpu_torch.ops.device_rx import device_rx_key, geo_from_key
+
+    geo = geo_from_key(device_rx_key(_modem("1200").cfg))
+    step = geo.bit_begin[1] - geo.bit_begin[0]
+    more = n_bits - geo.n_bits
+    return dataclasses.replace(
+        geo, n_bits=n_bits,
+        bit_begin=tuple(geo.bit_begin) + tuple(
+            geo.bit_begin[-1] + step * (i + 1) for i in range(more)),
+        req_data=tuple(geo.req_data) + (1,) * more,
+        req_sync=tuple(geo.req_sync) + (1,) * more)
+
+
+@pytest.mark.parametrize("n_bits", [13, 17, 24, 32])
+def test_fused_kernel_equals_plain_wide_frames(cuda, n_bits):
+    """Frames of 13 bits (the <= 16 bucket) and of 17-32 (the bucket that
+    reads its taps again from shared memory), seeded Bell-202 audio under
+    noise and a row of noise, bit for bit."""
+    from minimodem_tpu_torch.ops import fused_score
+
+    geo = _wide_geometry(n_bits)
+    assert fused_score.serves(geo)
+    cfg, wav = _noisy("1200", 3 + n_bits)
+    t_total = (1 << 15) + 6
+    x = np.zeros((2, t_total + geo.halo), np.float32)
+    x[0] = np.resize(wav, x.shape[1])
+    x[1] = np.random.default_rng(n_bits).standard_normal(x.shape[1])
+    _k1_equals_plain(cuda, geo, x, t_total)
+
+
+def _fallback_audio(kind, cfg, n, rng):
+    """Audio that drives stage 2's guard to the IEEE division: silence
+    (own = 0, no mark), a pure mark tone (every bit a mark: the space
+    average, 0, divides nothing), noisy Bell-202 at amplitudes near 1e30
+    (the squares overflow) and 1e-30 (they underflow), at 2^57 and 2^-59
+    (averages next to the window's ends) and with isolated inf and NaN
+    samples."""
+    t = np.arange(n)
+    if kind == "zeros":
+        return np.zeros(n, np.float32)
+    if kind == "mark":
+        return np.cos(2 * np.pi * float(cfg.mark_f) * t
+                      / float(cfg.sample_rate)).astype(np.float32)
+    _, wav = _noisy("1200", 7)
+    wav = np.resize(wav, n).astype(np.float64)
+    if kind != "infnan":
+        return (wav * float(kind)).astype(np.float32)
+    x = wav.astype(np.float32)
+    for v in (np.inf, -np.inf, np.nan):
+        x[rng.integers(0, n, 2)] = v
+    return x
+
+
+@pytest.mark.parametrize("n_bits", [8, 11, 20])
+def test_fused_kernel_fallback_equals_plain(cuda, n_bits, capsys):
+    """Audio that sends offsets to stage 2's IEEE division (the guard of
+    csrc/fused_score.cu averages()), one row a kind, in each bucket (SAME's
+    8 frame bits, Bell-202's 11, a 20-bit frame): bit for bit, and the
+    share of offsets that took the fallback reported (k1_ab.guard_share)."""
+    from minimodem_tpu_torch.ops.device_rx import device_rx_key, geo_from_key
+    from minimodem_tpu_torch.scripts.k1_ab import guard_share
+
+    mode = "same" if n_bits == 8 else "1200"
+    geo = (_wide_geometry(n_bits) if n_bits == 20 else
+           geo_from_key(device_rx_key(_modem(mode).cfg)))
+    cfg = _modem(mode).cfg
+    kinds = ("zeros", "mark", "1e30", "1e-30", str(2.0 ** 57),
+             str(2.0 ** -59), "infnan")
+    t_total = 1 << 14
+    rng = np.random.default_rng(n_bits)
+    x = np.stack([_fallback_audio(k, cfg, t_total + geo.halo, rng)
+                  for k in kinds])
+    xt = _k1_equals_plain(cuda, geo, x, t_total)
+    shares = {k: guard_share(xt[i:i + 1], geo, t_total)["share"]
+              for i, k in enumerate(kinds)}
+    with capsys.disabled():
+        print(f"\nK1 fallback share, {n_bits} frame bits: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in shares.items()))
+    assert shares["zeros"] == 1.0 and shares["mark"] == 0.0
+    assert shares["1e30"] > 0.5 and shares["1e-30"] == 1.0
+    assert 0.0 < shares["infnan"] < 0.5
 
 
 def test_fused_kernel_equals_plain_at_the_path_shape(cuda):
