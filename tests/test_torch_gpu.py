@@ -875,6 +875,56 @@ def test_k1_counts_in_a_traced_rtty_call(cuda):
     assert len(traced[0][2]) > 0
 
 
+def test_same_loopback_counts_and_reference(cuda):
+    """SAME's loopback on the card, traced: one K1 launch in the dual
+    layout, which adds launch_counts to the lb.enqueue span, and two
+    streams of one alert each (the benchmark's schedule maker) equal the
+    benchmark's plain reference on the card event for event and byte for
+    byte."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from minimodem_tpu_torch.models.presets import PRESETS
+    from minimodem_tpu_torch.ops import fused_score
+    from minimodem_tpu_torch.ops.demod import geometry_from_config
+    from minimodem_tpu_torch.ops.device_rx import DeviceLoopback
+    from minimodem_tpu_torch.utils import trace
+    from mmbench import harness
+    from mmbench.trace import Spans
+
+    root = Path(__file__).resolve().parents[1]
+    cell = harness.resolve(harness.load_manifest(root), "same.alerts128",
+                           root)
+    cell.traffic.update(streams=2, payload_sets=1, check_streams=2,
+                        alerts_per_stream=1)
+    drv = harness.load_driver(cell.traffic["driver"]).Driver(
+        cell, 2**33 + 5, "cuda", Spans())
+    drv.make_inputs()
+    cfg = PRESETS["same"](sample_rate=48000).cfg
+    lb = DeviceLoopback(cfg, device=cuda)
+    lb.run_events_batch(drv.scheds[0], THR, LIM)
+    trace.clear()
+    launches = fused_score.FusedScorer.launches
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = lb.run_events_batch(drv.scheds[0], THR, LIM)
+    recs = trace.records()
+    trace.clear()
+    assert fused_score.FusedScorer.launches == launches + 1
+    t_len = lb.build_loop(8192).t_total
+    geo = geometry_from_config(cfg)
+    assert fused_score.plane_rows(geo) == 5
+    want = fused_score.launch_counts(geo, 2, t_len)
+    assert want["k1_offsets"] == 2 * t_len
+    enqueue = [r for r in recs if r.name == "lb.enqueue"]
+    assert len(enqueue) == 1 and enqueue[0].counts == want
+    ref = drv.reference()
+    for i, res in enumerate(got):
+        for a, b in zip(res, ref[0, i]):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        assert bytes(res[2]).startswith(b"ZCZC-")
+
+
 @pytest.mark.parametrize("k", [0, 2, 5])
 def test_wirepack_unpack_cuda_equals_cpu(cuda, k):
     """unpack_expand on the card: every float32 word of the row equals the
