@@ -8,20 +8,28 @@
 //   0 conf_data  1 ampl_data  2 bits_lo  (3 conf_sync  4 ampl_sync when
 //   the sync expect string differs from the data one).
 //
-// One CTA per (tile of `tile` offsets, stream):
-//   1. one thread stages the tile's audio plus its halo (max_begin + nb
-//      samples) into shared memory with a 1-D TMA bulk copy; the others
-//      stage the basis interleaved as [nb][4] (one float4 per tap);
-//   2. correlate, register-blocked (correlate.cuh, shared with K3): each
-//      thread scores kR = 8 consecutive sample offsets, each sum the
-//      ascending-j __fmaf_rn chain of the plain version, so the planes
-//      match it bit for bit;
-//   3. band magnitudes sqrtf(c*c + s*s) * scal (pallas_score.py:228-231),
+// One CTA per (run of `run` consecutive tiles of `tile` offsets, stream),
+// which walks its run's tiles in order:
+//   0. the basis is staged once, interleaved as [nb][4] (one float4 per
+//      tap); each tile's audio by a 1-D TMA bulk copy, the first tile's
+//      before stage 1, each later tile's while stage 2 of the one before
+//      runs;
+//   1. the first tile of a run correlates its n_t offsets plus max_begin
+//      of halo.  A later tile first moves the (signal, noise) pairs of the
+//      previous tile's last `carry` offsets (max_begin rounded up to a
+//      task of 8) to the front of its plane, where they are its own first
+//      offsets, and correlates only the rest.  An offset's correlation is
+//      a function of its nb samples alone, so a pair is the same whichever
+//      tile computed it.  Correlation is register-blocked (correlate.cuh,
+//      shared with K3): each thread scores kR = 8 consecutive sample
+//      offsets, each sum the ascending-j __fmaf_rn chain of the plain
+//      version, so the planes match it bit for bit;
+//   2. band magnitudes sqrtf(c*c + s*s) * scal (pallas_score.py:228-231),
 //      the strict bit mark > space, the signed signal (the sign carries
 //      the bit) and the noise gated at FLT_EPSILON, stored as one (signal,
 //      noise) pair an offset in a phase-major plane (offset s at (s % 4) *
 //      P + s / 4), so that stage 2's reads are conflict-free;
-//   4. stage 2: pass 1 (comb sums over the n_bits taps at bit_begin[k])
+//   3. stage 2: pass 1 (comb sums over the n_bits taps at bit_begin[k])
 //      and pass 2 (divergence), each sum in ascending k as before.  The
 //      kernel is built for three buckets of bit counts, which the launcher
 //      picks by n_bits: <= 8 (four offsets a thread) and 9..16 (one; every
@@ -42,7 +50,13 @@
 // stage 1 cuts shared-memory traffic per FMA by ~6x, whole blocks of 8 taps
 // run unguarded (only the last nb % 8 taps test j < nb), and the tile
 // (ops/fused_score.py pick_tile: at least 8 * max_begin, 4096 for Bell-202)
-// cuts the halo to ~10% while CTAs of ~55 KB sit 4 to an SM. What bounds K1 is
+// keeps CTAs of ~55 KB 4 to an SM.  A run of tiles (ops/fused_score.py
+// pick_run: as long as the grid keeps its waves of CTAs) pays the halo once
+// a run instead of once a tile: RTTY's 7,392-offset halo over a 4096 tile
+// made each CTA correlate 2.80 offsets a scored one, runs of 23 tiles at
+// skimmer32's shape 1.08 (K1 queued 57.23 → 23.70 ms; alerts128's 15.15 →
+// 12.63, runs of 34 with SAME's bucket at 3 CTAs an SM; scripts/k1_ab.py,
+// NVIDIA H100 80GB HBM3, 700.00 W). What bounds K1 is
 // the issue rate of its instructions: ~4.4 a tap and offset in stage 1's loop
 // (scripts/k1_ab.py census) and, before the step, stage 2's two tap loops of
 // 107 and 183 instructions a pair of taps for four offsets, 8 MUFU reciprocals
@@ -217,7 +231,9 @@ __device__ __forceinline__ void stage2(
         Comb c[kQ];
 #pragma unroll
         for (int j = 0; j < kQ; ++j) c[j] = Comb{0.0f, 0.0f, 0.0f, 0u};
-        float v[kHold ? kMaxBits : 1][kQ];        // held taps (signed)
+        // held taps (signed); zero past n_bits, so that no tap a pass
+        // skips carries a value round the tile loop, across stage 1
+        float v[kHold ? kMaxBits : 1][kQ] = {};
         if constexpr (kHold) {
 #pragma unroll
             for (int k = 0; k < kMaxBits; ++k) {
@@ -313,23 +329,90 @@ __device__ __forceinline__ void stage2(
     }
 }
 
+// The samples of the tile at t0 that stage 1 reads from its offset a on:
+// those of its offsets up to n_t + max_begin rounded up to a task of 8,
+// as far as the row's t_len + max_begin + nb - 1 samples hold them.  So
+// the rounded offsets past the halo hold their true pairs too wherever
+// the next tile reads them (each offset it scores lies before the row's
+// end), and a carry of max_begin rounded up to 8 leaves every later full
+// tile exactly tile / 8 tasks.
+__device__ __forceinline__ int tile_samples(int t0, int t_len, int tile,
+                                            int max_begin, int nb, int a) {
+    const int n_t = min(tile, t_len - t0);
+    const int s_cnt = min((n_t + max_begin + 7) & ~7, t_len - t0 + max_begin);
+    return max(s_cnt - a + nb - 1, 0);
+}
+
+// The audio of one tile, x_cnt samples of xrow into xs (16-byte aligned).
+// tma: xrow is 16-byte aligned (for every tile of a row or for none, a
+// tile's first sample lying a multiple of 8 past the row's); then thread 0
+// completes a phase of bar with a 1-D TMA bulk copy of the 16-byte body (an
+// arrival alone where the body is empty), after a proxy fence that orders
+// the threads' earlier reads of xs before it, and the CTA's threads load
+// the rest.  Each thread waits on bar at the phase's parity, after a
+// __syncthreads, before it reads xs.
+__device__ __forceinline__ void stage_tile_audio(float* xs,
+                                                 const float* xrow,
+                                                 int x_cnt, uint64_t* bar,
+                                                 bool tma, int tid) {
+    const int bulk = tma ? (x_cnt & ~3) : 0;
+    if (tid == 0 && tma) {
+        sm90::fence_proxy_async();
+        sm90::mbar_arrive_expect_tx(bar, 4u * bulk);
+        if (bulk) sm90::tma_load_1d(xs, xrow, 4u * bulk, bar);
+    }
+    for (int i = bulk + tid; i < x_cnt; i += kThreads) xs[i] = xrow[i];
+}
+
+// The (signal, noise) pairs of the previous tile's last `carry` offsets
+// (local tile .. tile + carry - 1) to the front of the plane (local 0 ..
+// carry - 1), where this tile's first offsets sit.  tile is a multiple of
+// 8, so an offset keeps its phase and each phase's segment shifts a run of
+// carry / 4 pairs down by tile / 4, two pairs a 16-byte word, in rounds of
+// at most tile / 4 pairs so that no round writes what it or a later round
+// reads; each round starts with a __syncthreads (the first: stage 2 of the
+// previous tile has read the plane).
+__device__ __forceinline__ void carry_halo(float2* sn, int ph, int tile,
+                                           int carry, int tid) {
+    float4* w = reinterpret_cast<float4*>(sn);
+    const int ph2 = ph / 2, step = tile / 8, n = carry / 8;
+    for (int r0 = 0; r0 < n; r0 += step) {
+        __syncthreads();
+        const int m = min(step, n - r0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            float4* seg = w + q * ph2 + r0;
+            for (int i = tid; i < m; i += kThreads) seg[i] = seg[i + step];
+        }
+    }
+}
+
+// The CTAs an SM holds in each bucket, which bound its registers: up to 8
+// frame bits, 3 (SAME's 59 KB CTA at 80 registers, where 2 at ~104 took
+// 5% longer at alerts128's shape; RTTY's CTA is alone on its SM by its
+// shared memory); 9..16, 4 (Bell-202's 55 KB CTA at 64); past 16, 3.
+constexpr int bucket_ctas(int max_bits) {
+    return max_bits <= 8 ? 3 : max_bits <= 16 ? 4 : 3;
+}
+
 template <int kMinBits, int kMaxBits, int kQ, bool kHold>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, bucket_ctas(kMaxBits))
 fused_score_kernel(const float* __restrict__ x, long long x_stride,
                    int t_len, const float* __restrict__ basis, int nb,
                    const int* __restrict__ bit_begin, int n_bits,
                    int max_begin, float scal, unsigned d_mask,
                    unsigned d_val, unsigned s_mask, unsigned s_val,
-                   int n_planes, int tile, int* __restrict__ out) {
+                   int n_planes, int tile, int run, int* __restrict__ out) {
     extern __shared__ __align__(16) float smem[];
     __shared__ uint64_t bar;
     __shared__ float rcp_n[33];                   // RN(1 / k), k <= 32
     const int tid = threadIdx.x;
     const int b = blockIdx.y;
-    const int t0 = blockIdx.x * tile;
-    const int n_t = min(tile, t_len - t0);        // offsets this CTA scores
-    const int s_cnt = n_t + max_begin;            // correlated offsets
-    const int x_cnt = s_cnt + nb - 1;             // audio samples they read
+    const int k0 = blockIdx.x * run;              // the run's first tile
+    const int k_end = min(k0 + run, (t_len + tile - 1) / tile);
+    // the offsets a later tile of the run takes over from the one before:
+    // the halo rounded up to whole tasks, so stage 1's stay aligned
+    const int carry = (max_begin + kR - 1) & ~(kR - 1);
     const int nb8 = (nb + 7) & ~7;
     const int span8 = (tile + max_begin + 7) & ~7;
     const int ph = span8 / 4;                     // phase-major plane stride
@@ -339,10 +422,17 @@ fused_score_kernel(const float* __restrict__ x, long long x_stride,
     float2* sn = reinterpret_cast<float2*>(xs + span8 + nb8);  // [span8]
     int4* offq = reinterpret_cast<int4*>(sn + span8); // [n_bits]
 
-    // ---- stage 0: the audio (by TMA where aligned), the basis, the bit
-    // offsets and the reciprocals of the bit counts ----
-    const float* xrow = x + (long long)b * x_stride + t0;
-    const bool tma = corr::stage_audio(xs, xrow, x_cnt, &bar, tid, kThreads);
+    // ---- stage 0: the first tile's audio (by TMA where aligned), the
+    // basis, the bit offsets and the reciprocals of the bit counts ----
+    const float* xrow = x + (long long)b * x_stride;
+    const bool tma = (reinterpret_cast<uintptr_t>(xrow) & 15u) == 0u;
+    if (tid == 0 && tma) {
+        sm90::mbar_init(&bar, 1);
+        sm90::mbar_init_fence();
+    }
+    stage_tile_audio(xs, xrow + (long long)k0 * tile,
+                     tile_samples(k0 * tile, t_len, tile, max_begin, nb, 0),
+                     &bar, tma, tid);
     corr::stage_basis(bs, basis, nb, tid, kThreads);
     // tap k of offset 4u + q sits at offq[k].q + u in the phase-major plane
     for (int k = tid; k < n_bits; k += kThreads) {
@@ -353,52 +443,77 @@ fused_score_kernel(const float* __restrict__ x, long long x_stride,
                             ((bk + 3) & 3) * ph + ((bk + 3) >> 2));
     }
     if (tid <= 32) rcp_n[tid] = tid ? __frcp_rn((float)tid) : 0.0f;
-    __syncthreads();
-    if (tma) sm90::mbar_wait(&bar, 0);
 
-    // ---- stage 1: correlation -> magnitudes -> (signal, noise) plane ----
-    const int n_task = (s_cnt + kR - 1) / kR;
-    for (int task = tid; task < n_task; task += kThreads) {
-        const int i0 = task * kR;
-        float acc[kR][4];
-        corr::correlate8(acc, xs + i0, bs, nb);
-        // offsets i0 + q and i0 + 4 + q share phase q: adjacent pairs
+    for (int k = k0; k < k_end; ++k) {
+        const int t0 = k * tile;
+        const int n_t = min(tile, t_len - t0);    // offsets this tile scores
+        // offsets taken over from the previous tile; xs holds the audio
+        // from offset a on
+        const int a = k == k0 ? 0 : carry;
+        if (a) carry_halo(sn, ph, tile, carry, tid);
+        __syncthreads();
+        if (tma) sm90::mbar_wait(&bar, (k - k0) & 1);
+
+        // ---- stage 1: correlation -> magnitudes -> (signal, noise)
+        // plane, for offsets a .. n_t + max_begin ----
+        const int n_task = (n_t + max_begin + kR - 1) / kR;
+        for (int task = a / kR + tid; task < n_task; task += kThreads) {
+            const int i0 = task * kR;
+            float acc[kR][4];
+            corr::correlate8(acc, xs + (i0 - a), bs, nb);
+            // offsets i0 + q and i0 + 4 + q share phase q: adjacent pairs
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            float s0, n0, s1, n1;
-            magnitudes(acc[q], scal, s0, n0);
-            magnitudes(acc[q + 4], scal, s1, n1);
-            *reinterpret_cast<float4*>(sn + q * ph + i0 / 4) =
-                make_float4(s0, n0, s1, n1);
+            for (int q = 0; q < 4; ++q) {
+                float s0, n0, s1, n1;
+                magnitudes(acc[q], scal, s0, n0);
+                magnitudes(acc[q + 4], scal, s1, n1);
+                *reinterpret_cast<float4*>(sn + q * ph + i0 / 4) =
+                    make_float4(s0, n0, s1, n1);
+            }
         }
-    }
-    __syncthreads();
+        __syncthreads();
+        // the next tile's audio past its carry, while stage 2 runs
+        if (k + 1 < k_end)
+            stage_tile_audio(
+                xs, xrow + (long long)(t0 + tile + carry),
+                tile_samples(t0 + tile, t_len, tile, max_begin, nb, carry),
+                &bar, tma, tid);
 
-    // ---- stage 2: comb sums (pass 1) and divergence (pass 2) ----
-    const long long plane = (long long)t_len;
-    stage2<kMinBits, kMaxBits, kQ, kHold>(
-        sn, offq, rcp_n, n_bits, n_t, tid,
-        out + (long long)b * n_planes * plane + t0, plane, (t_len & 3) == 0,
-        d_mask, d_val, s_mask, s_val, n_planes);
+        // ---- stage 2: comb sums (pass 1) and divergence (pass 2) ----
+        const long long plane = (long long)t_len;
+        stage2<kMinBits, kMaxBits, kQ, kHold>(
+            sn, offq, rcp_n, n_bits, n_t, tid,
+            out + (long long)b * n_planes * plane + t0, plane,
+            (t_len & 3) == 0, d_mask, d_val, s_mask, s_val, n_planes);
+    }
 }
 
+// a stage-2 bucket (mm_fused_score): its kernel
 template <int kMinBits, int kMaxBits, int kQ, bool kHold>
-int launch(const float* x, long long x_stride, int batch, int t_len,
-           const float* basis, int nb, const int* bit_begin, int n_bits,
-           int max_begin, float scal, unsigned d_mask, unsigned d_val,
-           unsigned s_mask, unsigned s_val, int n_planes, int tile,
-           int smem_bytes, int* out, cudaStream_t stream) {
-    auto kernel = fused_score_kernel<kMinBits, kMaxBits, kQ, kHold>;
-    if (smem_bytes > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-        if (e != cudaSuccess) return (int)e;
+struct Bucket {
+    static auto kernel() {
+        return fused_score_kernel<kMinBits, kMaxBits, kQ, kHold>;
     }
-    dim3 grid((t_len + tile - 1) / tile, batch);
-    kernel<<<grid, kThreads, smem_bytes, stream>>>(
-        x, x_stride, t_len, basis, nb, bit_begin, n_bits, max_begin, scal,
-        d_mask, d_val, s_mask, s_val, n_planes, tile, out);
-    return (int)cudaGetLastError();
+};
+
+// stage 2's bucket by the frame's bit count (ops/fused_score.py REG_BITS):
+// each offset's taps held in registers up to 16 bits; four offsets a
+// thread up to 8 (RTTY's 159 KB CTA sits alone on an SM and wants the
+// parallelism) and past 16, one from 9 to 16 (Bell-202's 55 KB CTAs sit 4
+// to an SM at its 64 registers); bucket_ctas bounds each one's registers
+template <class F>
+int by_bucket(int n_bits, F&& f) {
+    if (n_bits <= 8) return f(Bucket<1, 8, 4, true>{});
+    if (n_bits <= 16) return f(Bucket<9, 16, 1, true>{});
+    return f(Bucket<17, 32, 4, false>{});
+}
+
+// the dynamic shared memory a CTA of the kernel may take
+template <class K>
+cudaError_t allow_smem(K kernel, int smem_bytes) {
+    if (smem_bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 
 }  // namespace
@@ -409,25 +524,39 @@ extern "C" int mm_fused_score(const void* x, long long x_stride, int batch,
                               int max_begin, float scal, unsigned d_mask,
                               unsigned d_val, unsigned s_mask,
                               unsigned s_val, int n_planes, int tile,
-                              int smem_bytes, void* out, void* stream) {
+                              int run, int smem_bytes, void* out,
+                              void* stream) {
     // the phase-major planes need (tile + max_begin) rounded to 8, and the
     // bit mask 32 bits
-    if (tile % 8 != 0 || n_bits > 32 || n_bits < 1 || nb < 1)
+    if (tile % 8 != 0 || n_bits > 32 || n_bits < 1 || nb < 1 || run < 1)
         return (int)cudaErrorInvalidValue;
-    // stage 2's bucket by the frame's bit count (ops/fused_score.py
-    // REG_BITS): each offset's taps held in registers up to 16 bits; four
-    // offsets a thread up to 8 (RTTY's 159 KB CTA sits alone on an SM and
-    // wants the parallelism) and past 16, one from 9 to 16 (Bell-202's 55
-    // KB CTAs sit 4 to an SM at its 63 registers)
-    auto go = [&](auto kernel_launch) {
-        return kernel_launch(
-            static_cast<const float*>(x), x_stride, batch, t_len,
+    return by_bucket(n_bits, [&](auto bucket) {
+        const auto kernel = decltype(bucket)::kernel();
+        cudaError_t e = allow_smem(kernel, smem_bytes);
+        if (e != cudaSuccess) return (int)e;
+        const int n_tiles = (t_len + tile - 1) / tile;
+        dim3 grid((n_tiles + run - 1) / run, batch);
+        kernel<<<grid, kThreads, smem_bytes,
+                 static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(x), x_stride, t_len,
             static_cast<const float*>(basis), nb,
             static_cast<const int*>(bit_begin), n_bits, max_begin, scal,
-            d_mask, d_val, s_mask, s_val, n_planes, tile, smem_bytes,
-            static_cast<int*>(out), static_cast<cudaStream_t>(stream));
-    };
-    if (n_bits <= 8) return go(launch<1, 8, 4, true>);
-    if (n_bits <= 16) return go(launch<9, 16, 1, true>);
-    return go(launch<17, 32, 4, false>);
+            d_mask, d_val, s_mask, s_val, n_planes, tile, run,
+            static_cast<int*>(out));
+        return (int)cudaGetLastError();
+    });
+}
+
+// The CTAs of K1's kernel for n_bits frame bits that one SM holds at
+// smem_bytes of dynamic shared memory, into *ctas.
+extern "C" int mm_fused_score_ctas(int n_bits, int smem_bytes, int* ctas) {
+    if (n_bits > 32 || n_bits < 1) return (int)cudaErrorInvalidValue;
+    return by_bucket(n_bits, [&](auto bucket) {
+        const auto kernel = decltype(bucket)::kernel();
+        cudaError_t e = allow_smem(kernel, smem_bytes);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                ctas, kernel, kThreads, smem_bytes);
+        return (int)e;
+    });
 }

@@ -19,10 +19,17 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
                  : "memory");
 }
 
+// orders this CTA's earlier shared-memory accesses (seen through a
+// __syncthreads) before the async proxy's: a TMA that refills a buffer
+// the threads have read
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // makes mbarrier.init visible to the other threads and the async proxy
 __device__ __forceinline__ void mbar_init_fence() {
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    fence_proxy_async();
 }
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {

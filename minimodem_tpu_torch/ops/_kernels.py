@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of csrc/ as one shared library with a
 plain C interface:
 
-    K1  fused_score.cu  mm_fused_score  the fused scorer (ops/fused_score.py)
+    K1  fused_score.cu  mm_fused_score  the fused scorer (ops/fused_score.py);
+                        mm_fused_score_ctas its CTAs an SM
     K2  mega_rx.cu      mm_mega_rx      the state machine (ops/mega_rx.py)
     K3  correlate.cu    mm_correlate    the stage-1 correlation
                                         (ops/correlate.py)
@@ -62,7 +63,8 @@ _ULL = ctypes.c_ulonglong
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "mm_fused_score": [_P, _LL, _I, _I, _P, _I, _P, _I, _I, _F, _U, _U, _U,
-                       _U, _I, _I, _I, _P, _P],
+                       _U, _I, _I, _I, _I, _P, _P],
+    "mm_fused_score_ctas": [_I, _I, _IP],
     "mm_mega_rx": [_P] * 12,
     "mm_correlate": [_P, _LL, _I, _I, _P, _I, _I, _I, _P, _P],
     "mm_tx_synth_bits": [_P, _I, _I, _I, _U, _I, _D, _D, _F, _F, _F, _P, _P,

@@ -21,6 +21,8 @@ from ops/demod.py), and anything else raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -37,6 +39,15 @@ _SMEM_MAX = 227 * 1024 - 256
 # a tile of at least this many times max_begin recomputes at most 1/8 of
 # its offsets as halo
 _HALO_RATIO = 8
+# a CTA walks a run of tiles (pick_run) only while the grid keeps at least
+# this many waves of the card's CTA slots: a run pays the halo once for
+# its tiles (max_begin / (run x tile) a scored offset), while the last
+# wave's idle slots cost up to 1 / RUN_WAVES of the launch.  On an H100
+# (scripts/k1_ab.py --sweep, K1 queued) 2, 4, 8, 16 and 32 waves took
+# 23.0, 24.1, 23.7, 24.6 and 29.2 ms at skimmer32's shape (runs of 95 ..
+# 5 tiles) and 13.0, 12.8, 12.6, 12.4 and 12.4 ms at alerts128's (138 ..
+# 8): 8 is within 3% of the best at both
+RUN_WAVES = 8
 # stage 2 holds each offset's frame taps in registers up to this many frame
 # bits (csrc/fused_score.cu mm_fused_score's buckets: <= 8, four offsets a
 # thread, and 9..16, one); longer frames read them again from shared memory
@@ -89,23 +100,73 @@ def pick_tile(geo: DemodGeometry):
     return None
 
 
-def launch_counts(geo: DemodGeometry, rows: int, t_len: int) -> dict:
+def pick_run(geo: DemodGeometry, rows: int, t_len: int, slots: int) -> int:
+    """The tiles a CTA walks (csrc/fused_score.cu): the largest run that
+    still leaves rows x ceil(tiles / run) CTAs, RUN_WAVES waves of the
+    card's `slots` (its SMs x the CTAs an SM holds at this geometry); 1,
+    one CTA a tile, where the grid is under RUN_WAVES waves already.  A
+    run pays the halo once for all its tiles."""
+    tiles = -(-t_len // pick_tile(geo))
+    per_row = -(-RUN_WAVES * slots // rows)    # CTAs a row must keep
+    if per_row > tiles:
+        return 1
+    if per_row <= 1:
+        return tiles
+    # ceil(tiles / run) >= per_row  <=>  run <= (tiles - 1) // (per_row - 1)
+    return (tiles - 1) // (per_row - 1)
+
+
+def launch_counts(geo: DemodGeometry, rows: int, t_len: int,
+                  run: int) -> dict:
     """The work of one K1 launch over `rows` streams of `t_len` scored
-    offsets, as csrc/fused_score.cu does it: `k1_offsets`, the offsets
-    scored (rows x t_len); `k1_correlated`, the offsets stage 1
-    correlates (each CTA its n_t <= tile offsets plus max_begin of halo,
-    in whole tasks of 8: rows x the sum over CTAs of round8(n_t +
-    max_begin)); `k1_reg_offsets`, the offsets whose stage 2 holds their
-    taps in registers (rows x t_len up to REG_BITS frame bits, else 0).
-    RTTY at 48 kHz: tile 4096, max_begin 7392, 2.80 correlated a scored
-    offset; Bell-202: 4096, 400, 1.10."""
+    offsets, each CTA walking `run` tiles, as csrc/fused_score.cu does it:
+    `k1_offsets`, the offsets scored (rows x t_len); `k1_correlated`, the
+    offsets stage 1 correlates (rows x, for each tile, its n_t <= tile
+    offsets plus max_begin in whole tasks of 8, less `carry` = max_begin
+    rounded up to 8 for each tile that is not its run's first);
+    `k1_carried`, the offsets whose (signal, noise) pair a CTA took over
+    from its previous tile (rows x carry for each such tile), so that
+    k1_correlated + k1_carried is the count at run 1; `k1_reg_offsets`, the
+    offsets whose stage 2 holds their taps in registers (rows x t_len up
+    to REG_BITS frame bits, else 0).  At run 1, RTTY at 48 kHz (tile 4096,
+    max_begin 7392) correlates 2.80 offsets a scored offset, Bell-202
+    (4096, 400) 1.10."""
     tile = pick_tile(geo)
     full, last = divmod(t_len, tile)
     per_row = full * _round8(tile + geo.max_begin)
     if last:
         per_row += _round8(last + geo.max_begin)
-    return {"k1_offsets": rows * t_len, "k1_correlated": rows * per_row,
+    tiles = full + (last > 0)
+    carried = (tiles - -(-tiles // run)) * _round8(geo.max_begin)
+    return {"k1_offsets": rows * t_len,
+            "k1_correlated": rows * (per_row - carried),
+            "k1_carried": rows * carried,
             "k1_reg_offsets": rows * t_len if geo.n_bits <= REG_BITS else 0}
+
+
+_SLOTS = {}      # (device index, n_bits, shared memory) -> card_slots
+
+
+def card_slots(geo: DemodGeometry, device) -> int:
+    """The CTAs of K1 at this geometry that the card holds at once: its SMs
+    x the CTAs an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    on the kernel of the geometry's bucket at its shared memory), queried
+    once a device and geometry."""
+    from . import _kernels
+
+    device = torch.device(device)
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    key = (idx, geo.n_bits, smem_bytes(geo, pick_tile(geo)))
+    if key not in _SLOTS:
+        ctas = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            _kernels.check(_kernels.load().mm_fused_score_ctas(
+                geo.n_bits, key[2], ctypes.byref(ctas)),
+                "mm_fused_score_ctas")
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        _SLOTS[key] = sms * ctas.value
+    return _SLOTS[key]
 
 
 def serves(geo: DemodGeometry) -> bool:
@@ -173,7 +234,10 @@ class FusedScorer:
             raise ValueError(f"no fused scorer for device {x.device}")
         return self._launch(x.contiguous(), t_len)
 
-    def _launch(self, x: torch.Tensor, t_len: int) -> torch.Tensor:
+    def _launch(self, x: torch.Tensor, t_len: int,
+                _run: int | None = None) -> torch.Tensor:
+        """K1 on the card, each CTA walking pick_run's tiles (`_run` in its
+        place, for tests and scripts/k1_ab.py)."""
         from . import _kernels
 
         geo = self.geo
@@ -182,18 +246,20 @@ class FusedScorer:
                           dtype=torch.int32, device=x.device)
         if t_len == 0 or x.shape[0] == 0:
             return out
+        run = _run or pick_run(geo, x.shape[0], t_len,
+                               card_slots(geo, x.device))
         lib = _kernels.load()
         err = lib.mm_fused_score(
             x.data_ptr(), x.stride(0), x.shape[0], t_len,
             basis.data_ptr(), geo.nb, begin.data_ptr(), geo.n_bits,
             geo.max_begin, float(np.float32(geo.magscalar)),
             self.d_mask, self.d_val, self.s_mask, self.s_val,
-            self.n_planes, self.tile, smem_bytes(geo, self.tile),
+            self.n_planes, self.tile, run, smem_bytes(geo, self.tile),
             out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
         _kernels.check(err, "mm_fused_score")
         FusedScorer.launches += 1
         if _trace.enabled():
-            _trace.add(**launch_counts(geo, x.shape[0], t_len))
+            _trace.add(**launch_counts(geo, x.shape[0], t_len, run))
         return out
 
 

@@ -2,7 +2,7 @@
 trees of the repository in one call (in turns: A, B, B, A).  Run from a
 tree's root: it imports that tree's minimodem_tpu_torch.
 
-    cd <tree> && python3 <this file> [--out FILE] [--split]
+    cd <tree> && python3 <this file> [--out FILE] [--split] [--sweep]
 
 Prints one JSON line, and appends it to FILE where given:
 
@@ -11,7 +11,8 @@ Prints one JSON line, and appends it to FILE where given:
   instantiation (its template arguments, none before the buckets):
   registers, spill bytes and static shared memory (nvcc -Xptxas -v on
   csrc/fused_score.cu at the library's flags), the CTAs resident per SM at
-  each preset geometry's shared memory, and static SASS counts of the
+  each preset geometry's shared memory (and, where the tree queries it,
+  the occupancy API's count: `ctas_api`), and static SASS counts of the
   loaded library (cuobjdump -sass) by instruction class: stage 1's tap
   loop per tap and offset, its task loop outside the tap loop per offset,
   stage 2's loop (the one that stores the planes) per pass of its
@@ -21,15 +22,26 @@ Prints one JSON line, and appends it to FILE where given:
   synthesis of 128 streams of 64.3 s of Bell-202, bench.py's payloads):
   alone (torch.profiler, the kernel's device time) and queued (CUDA
   events over launches queued behind a sleeping kernel); its first 8 rows
-  against score_planes_plain (words differing) and the share of their
-  offsets whose stage-2 guard takes the IEEE division (`guard_share`).
+  against score_planes_plain (words differing; launched at the whole
+  buffer's run of tiles) and the share of their offsets whose stage-2
+  guard takes the IEEE division (`guard_share`).
 - `skimmer`: K1 at rtty.skimmer32's shape, [32, 3145728 + halo] of keyed
-  RTTY text under noise: alone and queued.
+  RTTY text under noise; `alerts`: at same.alerts128's, [128, 3407872 +
+  halo] of keyed SAME bytes under noise, its first 2 rows against
+  score_planes_plain; `file` and `stream`: Bell-202 at the file decode's
+  segment [1, 2^21 + halo] and a streaming segment's [1, 65536 + halo].
+  Each alone and queued, with the tiles a CTA walks there (`run`, for a
+  tree that walks them) and the card's CTA slots at the geometry
+  (`slots`: SMs x CTAs an SM, from the occupancy API).
+- `sweep` (with --sweep): K1 at the skimmer and alerts shapes at the runs
+  that pick_run gives for RUN_WAVES of 2, 4, 8, 16 and 32, alone and
+  queued, to settle RUN_WAVES.
 - `split` (with --split): the tree's K1 against variants built from a
   copy of its csrc/fused_score.cu in a temporary directory, never the
   package: `nodiv`, every __fdiv_rn a multiply; `stage1`, stage 2
   replaced by one store of each offset's signal and noise words into its
-  planes.  Alone and queued at the loopback buffer.
+  planes.  Alone and queued at the loopback buffer and at the skimmer and
+  alerts shapes.
 - `rows`: the batched loopback (bench.py; synchronous, pipeline 8).
 """
 
@@ -295,7 +307,26 @@ def k1_census(smoke) -> dict:
             entry.update(sass_census(code, q, smoke))
         res[name] = entry
     res["cuobjdump"] = r.returncode == 0
+    res["ctas_api"] = ctas_api()
     return res
+
+
+def ctas_api() -> dict:
+    """Each preset's CTAs an SM as the tree's launcher reads them from the
+    occupancy API (fused_score.card_slots / the SMs); None for a tree that
+    does not query it."""
+    import torch
+
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.ops import fused_score
+    from minimodem_tpu_torch.ops.device_rx import device_rx_key, geo_from_key
+
+    if not hasattr(fused_score, "card_slots"):
+        return None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {mode: fused_score.card_slots(
+        geo_from_key(device_rx_key(FskModem(mode, device="cpu").cfg)),
+        torch.device("cuda", 0)) // sms for mode in PRESETS}
 
 
 def _stage2_span(src: str):
@@ -364,8 +395,20 @@ def build_variant(name: str, tmp: str):
     return lib
 
 
-def launch_with(lib, scorer, x, t_len, out):
-    """FusedScorer._launch's call, through another library."""
+def run_of(scorer, rows, t_len, dev):
+    """The tiles a CTA of the tree's K1 walks at this shape; None for a
+    tree whose CTAs score one tile each."""
+    from minimodem_tpu_torch.ops import fused_score
+
+    if not hasattr(fused_score, "pick_run"):
+        return None
+    return fused_score.pick_run(scorer.geo, rows, t_len,
+                                fused_score.card_slots(scorer.geo, dev))
+
+
+def launch_with(lib, scorer, x, t_len, out, run=None):
+    """FusedScorer._launch's call, through another library; `run` for a
+    tree that walks runs of tiles."""
     import numpy as np
     import torch
 
@@ -373,11 +416,12 @@ def launch_with(lib, scorer, x, t_len, out):
 
     geo = scorer.geo
     basis, begin = scorer._device_consts(x.device)
+    walk = () if run is None else (run,)
     err = lib.mm_fused_score(
         x.data_ptr(), x.stride(0), x.shape[0], t_len, basis.data_ptr(),
         geo.nb, begin.data_ptr(), geo.n_bits, geo.max_begin,
         float(np.float32(geo.magscalar)), scorer.d_mask, scorer.d_val,
-        scorer.s_mask, scorer.s_val, scorer.n_planes, scorer.tile,
+        scorer.s_mask, scorer.s_val, scorer.n_planes, scorer.tile, *walk,
         fused_score.smem_bytes(geo, scorer.tile), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _kernels.check(err, "mm_fused_score (variant)")
@@ -430,11 +474,118 @@ def skimmer_buffer(dev, t_len=12 << 18, rows=32):
     return geo, torch.from_numpy(x).to(dev)
 
 
+def keyed_buffer(dev, mode, t_len, rows, seed):
+    """rows of keyed text (capitals and spaces) in `mode` under uniform
+    noise, each row the stream rotated, [rows, t_len + halo] float32."""
+    import numpy as np
+    import torch
+
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.ops.device_rx import device_rx_key, geo_from_key
+
+    m = FskModem(mode, device="cpu")
+    geo = geo_from_key(device_rx_key(m.cfg))
+    rng = np.random.default_rng(seed)
+    text = bytes(rng.choice(list(b"ABCDEFGHIJKLMNOPQRSTUVWXYZ "), 1200))
+    wav = np.resize(m.modulate(text), t_len + geo.halo).astype(np.float32)
+    x = torch.empty((rows, t_len + geo.halo), dtype=torch.float32,
+                    device=dev)
+    noise = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.from_numpy(wav).to(dev)
+    for i in range(rows):
+        x[i] = torch.roll(w, 977 * i)
+    x += (torch.rand(x.shape, generator=noise, device=dev) - 0.5) * 0.6
+    return geo, x
+
+
+def alerts_shape():
+    """same.alerts128's K1 shape: (rows, the loopback's scored length of
+    its 35,030-bit schedules)."""
+    from minimodem_tpu_torch.models.modem import FskModem
+    from minimodem_tpu_torch.ops.device_rx import (_round_up_pow2,
+                                                   _sched_pad)
+
+    cfg = FskModem("same", device="cpu").cfg
+    return 128, _round_up_pow2(_sched_pad(35030) * cfg.bit_nsamples_tx
+                               + cfg.nsamples_overscan + 1)
+
+
+def time_shape(scorer, x, t_len, dev) -> dict:
+    """K1 at one shape: alone and queued, with its run and slots."""
+    from minimodem_tpu_torch.ops import fused_score
+
+    res = {"shape": list(x.shape), "t_len": t_len}
+    run = run_of(scorer, x.shape[0], t_len, dev)
+    walk = ()
+    if run is not None:
+        res["run"], walk = run, (run,)
+        res["slots"] = fused_score.card_slots(scorer.geo, dev)
+    res["counts"] = fused_score.launch_counts(scorer.geo, x.shape[0], t_len,
+                                              *walk)
+    fn = lambda: scorer(x, t_len)                       # noqa: E731
+    res["alone_ms"] = alone_ms(fn)
+    res["queued_ms"] = queued_ms(fn)
+    return res
+
+
+def sweep(scorer, x, t_len, dev) -> dict:
+    """K1 at the runs pick_run gives for RUN_WAVES of 2 .. 32."""
+    from minimodem_tpu_torch.ops import fused_score
+
+    if not hasattr(fused_score, "pick_run"):
+        return None
+    slots = fused_score.card_slots(scorer.geo, dev)
+    res = {}
+    for waves in (2, 4, 8, 16, 32):
+        old = fused_score.RUN_WAVES
+        fused_score.RUN_WAVES = waves
+        try:
+            run = fused_score.pick_run(scorer.geo, x.shape[0], t_len, slots)
+        finally:
+            fused_score.RUN_WAVES = old
+        fn = lambda: scorer._launch(x, t_len, _run=run)   # noqa: E731
+        res[str(waves)] = {"run": run, "alone_ms": alone_ms(fn),
+                           "queued_ms": queued_ms(fn)}
+    return res
+
+
+def split_at(scorer, x, t_len, dev, tmp, libs) -> dict:
+    """The variants and the tree's K1 at one shape, alone and queued."""
+    import torch
+
+    split = {}
+    out = torch.empty((x.shape[0], scorer.n_planes, t_len),
+                      dtype=torch.int32, device=dev)
+    run = run_of(scorer, x.shape[0], t_len, dev)
+    for name in VARIANTS:
+        if name not in libs:
+            t0 = time.perf_counter()
+            libs[name] = build_variant(name, tmp)
+            if libs[name] is not None:
+                libs[name].build_s = time.perf_counter() - t0
+        lib = libs[name]
+        if lib is None:
+            split[name] = None
+            continue
+        vrun = lambda: launch_with(lib, scorer, x, t_len, out, run)  # noqa
+        split[name] = {"build_s": lib.build_s,
+                       "ptxas": list(lib.ptxas.values()),
+                       "alone_ms": alone_ms(vrun),
+                       "queued_ms": queued_ms(vrun)}
+    run_full = lambda: scorer(x, t_len)                 # noqa: E731
+    split["full"] = {"alone_ms": alone_ms(run_full),
+                     "queued_ms": queued_ms(run_full)}
+    del out
+    return split
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="append the JSON line to this file")
     ap.add_argument("--split", action="store_true",
                     help="time the nodiv and stage1 variants besides")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time K1 at the runs of 2 .. 32 waves besides")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     import importlib.util
@@ -465,11 +616,11 @@ def main(argv=None) -> int:
 
     cfg, audio, t_total = loopback_buffer(dev)
     scorer = FusedScorer(geo_from_key(device_rx_key(cfg)))
-    run = lambda: scorer(audio, t_total)                # noqa: E731
-    lb = {"shape": list(audio.shape), "alone_ms": alone_ms(run),
-          "queued_ms": queued_ms(run)}
+    lb = time_shape(scorer, audio, t_total, dev)
+    run = lb.get("run")
     sub = audio[:8].contiguous()
-    got = scorer(sub, t_total)
+    got = (scorer(sub, t_total) if run is None
+           else scorer._launch(sub, t_total, _run=run))
     ref = score_planes_plain(sub, scorer.geo, t_total)
     lb["rows_checked"] = 8
     lb["words_differing"] = int((got != ref).sum())
@@ -478,38 +629,53 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     res["loopback"] = lb
 
+    libs = {}
+    tmp = tempfile.TemporaryDirectory()
     if args.split:
-        split = {}
-        out = torch.empty((audio.shape[0], scorer.n_planes, t_total),
-                          dtype=torch.int32, device=dev)
-        with tempfile.TemporaryDirectory() as tmp:
-            for name in VARIANTS:
-                t0 = time.perf_counter()
-                lib = build_variant(name, tmp)
-                if lib is None:
-                    split[name] = None
-                    continue
-                vrun = lambda: launch_with(lib, scorer, audio, t_total,  # noqa
-                                           out)
-                split[name] = {"build_s": time.perf_counter() - t0,
-                               "ptxas": list(lib.ptxas.values()),
-                               "alone_ms": alone_ms(vrun),
-                               "queued_ms": queued_ms(vrun)}
-        split["full"] = {"alone_ms": alone_ms(run),
-                         "queued_ms": queued_ms(run)}
-        res["split"] = split
-        del out
+        res["split"] = {"loopback": split_at(scorer, audio, t_total, dev,
+                                             tmp.name, libs)}
     del audio
     torch.cuda.empty_cache()
 
     geo, x = skimmer_buffer(dev)
     sk = FusedScorer(geo)
-    srun = lambda: sk(x, 12 << 18)                      # noqa: E731
-    res["skimmer"] = {"shape": list(x.shape), "alone_ms": alone_ms(srun),
-                      "queued_ms": queued_ms(srun)}
+    res["skimmer"] = time_shape(sk, x, 12 << 18, dev)
+    if args.sweep:
+        res.setdefault("sweep", {})["skimmer"] = sweep(sk, x, 12 << 18, dev)
+    if args.split:
+        res["split"]["skimmer"] = split_at(sk, x, 12 << 18, dev, tmp.name,
+                                           libs)
     del x
     torch.cuda.empty_cache()
 
+    rows_a, t_a = alerts_shape()
+    geo, x = keyed_buffer(dev, "same", t_a, rows_a, 46)
+    al = FusedScorer(geo)
+    res["alerts"] = time_shape(al, x, t_a, dev)
+    sub = x[:2].contiguous()
+    run = res["alerts"].get("run")
+    got = (al(sub, t_a) if run is None
+           else al._launch(sub, t_a, _run=run))
+    ref = score_planes_plain(sub, geo, t_a)
+    res["alerts"]["rows_checked"] = 2
+    res["alerts"]["words_differing"] = int((got != ref).sum())
+    del got, ref, sub
+    if args.sweep:
+        res.setdefault("sweep", {})["alerts"] = sweep(al, x, t_a, dev)
+    if args.split:
+        res["split"]["alerts"] = split_at(al, x, t_a, dev, tmp.name, libs)
+    del x
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+
+    for name, t_len in (("file", 1 << 21), ("stream", 1 << 16)):
+        geo, x = keyed_buffer(dev, "1200", t_len, 1, 47)
+        res[name] = time_shape(FusedScorer(geo), x, t_len, dev)
+        del x
+
+    res["census"]["runs"] = {
+        k: res[k].get("run") for k in ("loopback", "skimmer", "alerts",
+                                       "file", "stream")}
     rows = {}
     for name, pipe in (("synchronous", 1), ("pipeline 8", 8)):
         r = bench.batched_loopback_throughput("1200", 64.3, 128,
@@ -524,8 +690,8 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         with open(args.out, "a") as f:
             f.write(line + "\n")
-    ok = lb["words_differing"] == 0 and all(
-        r["decode_exact"] for r in rows.values())
+    ok = lb["words_differing"] == 0 == res["alerts"]["words_differing"] \
+        and all(r["decode_exact"] for r in rows.values())
     return 0 if ok else 1
 
 

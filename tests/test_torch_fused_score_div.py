@@ -226,7 +226,7 @@ def test_k1_reg_offsets_by_frame_bits():
 
     assert fused_score.REG_BITS == 16
     for mode in ("1200", "rtty"):
-        c = fused_score.launch_counts(geo_of(mode), 3, 5000)
+        c = fused_score.launch_counts(geo_of(mode), 3, 5000, 1)
         assert c["k1_reg_offsets"] == c["k1_offsets"] == 15000
     geo = geo_of("1200")
     step_ = geo.bit_begin[1] - geo.bit_begin[0]
@@ -234,7 +234,7 @@ def test_k1_reg_offsets_by_frame_bits():
         geo, n_bits=20, bit_begin=tuple(range(0, 20 * step_, step_)),
         req_data=(-1,) * 20, req_sync=(-1,) * 20)
     assert fused_score.serves(wide)
-    assert fused_score.launch_counts(wide, 3, 5000)["k1_reg_offsets"] == 0
+    assert fused_score.launch_counts(wide, 3, 5000, 1)["k1_reg_offsets"] == 0
 
 
 def test_k1_ab_variants_apply_to_the_kernel():

@@ -189,6 +189,64 @@ def test_fused_kernel_equals_plain_at_the_path_shape(cuda):
     np.testing.assert_array_equal(k.cpu().numpy(), p.cpu().numpy())
 
 
+# (t_len in tiles and extra offsets, tiles a CTA walks, rows of an odd
+# width): several runs of several tiles, the row's partial
+# last tile inside a run and that run shorter than the others; t_len %
+# 4 != 0 (the unvectorised store) with rows of an odd width (every other
+# row unaligned: staged without TMA); one tile a CTA; one CTA a row
+WALKS = {"runs": (7, 100, 3, False), "odd": (5, 37, 2, True),
+         "one": (3, 5, 1, False), "row": (4, 4, 5, False)}
+
+
+@pytest.mark.parametrize("case", sorted(WALKS))
+@pytest.mark.parametrize("mode", ["1200", "300", "same", "rtty", "tdd",
+                                  "callerid"])
+def test_fused_kernel_walked_equals_plain(cuda, mode, case):
+    """K1 with each CTA walking a run of tiles, carrying the halo's
+    (signal, noise) pairs from one tile to the next (SAME's max_begin of
+    645 carried as 640), bit for bit the plain version at every preset."""
+    from minimodem_tpu_torch.ops.device_rx import device_rx_key, geo_from_key
+    from minimodem_tpu_torch.ops.fused_score import (FusedScorer,
+                                                     score_planes_plain)
+
+    cfg, wav = _noisy(mode, 11, n_bytes=200)
+    geo = geo_from_key(device_rx_key(cfg))
+    scorer = FusedScorer(geo)
+    tiles, extra, run, odd = WALKS[case]
+    t_total = tiles * scorer.tile + extra
+    width = t_total + geo.halo
+    x = np.zeros((3, width + ((1 - width) % 4 if odd else 0)), np.float32)
+    x[0] = np.resize(wav, x.shape[1])
+    x[1] = x[0, ::-1]
+    x[2] = np.random.default_rng(25).standard_normal(x.shape[1])
+    xt = torch.from_numpy(x).to(cuda)
+    k = scorer._launch(xt, t_total, _run=run)
+    p = score_planes_plain(xt, geo, t_total)
+    np.testing.assert_array_equal(k.cpu().numpy(), p.cpu().numpy())
+
+
+def test_fused_kernel_ctas_an_sm(cuda):
+    """The CTAs an SM that K1's launcher reads from the occupancy API, and
+    so its runs of tiles: RTTY's 159 KB CTA alone on its SM, SAME's 3
+    (its bucket bound to 3, 2 before the tile loop), Bell-202's 4 (its
+    55 KB CTA at up to 64 registers); at skimmer32's shape on a card of
+    132 SMs, runs of 23 tiles."""
+    from minimodem_tpu_torch.ops import fused_score
+    from minimodem_tpu_torch.ops.device_rx import device_rx_key, geo_from_key
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ctas = {}
+    for mode in ("1200", "same", "rtty"):
+        geo = geo_from_key(device_rx_key(_modem(mode).cfg))
+        slots = fused_score.card_slots(geo, cuda)
+        assert slots % sms == 0
+        ctas[mode] = slots // sms
+    assert ctas == {"rtty": 1, "1200": 4, "same": 3}
+    if sms == 132:
+        geo = geo_from_key(device_rx_key(_modem("rtty").cfg))
+        assert fused_score.pick_run(geo, 32, 12 << 18, 132) == 23
+
+
 def _k3_input(case, batch):
     """(basis [4, nb], stream, max_begin) of a K3 card case: a preset's
     basis and noisy audio (nb 37: 1200 at 44.1 kHz, 40: 1200, 92: same,
@@ -836,10 +894,11 @@ def test_staged_wire_equals_pageable_upload(cuda, monkeypatch, case):
 
 
 def test_k1_counts_in_a_traced_rtty_call(cuda):
-    """K1's launch adds k1_offsets and k1_correlated to the receiver's
-    rx.enqueue span, the values of fused_score.launch_counts at the
-    call's rows and scored length (RTTY: a 4096-offset tile under an
-    8448-sample halo); an untraced call records nothing."""
+    """K1's launch adds k1_offsets, k1_correlated and k1_carried to the
+    receiver's rx.enqueue span, the values of fused_score.launch_counts at
+    the call's rows, scored length and run of tiles (RTTY: a 4096-offset
+    tile under an 8448-sample halo, one tile a CTA at 3 short rows); an
+    untraced call records nothing."""
     from torch.profiler import ProfilerActivity, profile
 
     from minimodem_tpu_torch.ops import fused_score
@@ -863,8 +922,11 @@ def test_k1_counts_in_a_traced_rtty_call(cuda):
     recs = trace.records()
     trace.clear()
     t_len = _round_up_pow2(n + cfg.nsamples_overscan + 1)
-    want = fused_score.launch_counts(geometry_from_config(cfg), 3, t_len)
-    assert want["k1_correlated"] > 2 * want["k1_offsets"]
+    geo = geometry_from_config(cfg)
+    run = fused_score.pick_run(geo, 3, t_len,
+                               fused_score.card_slots(geo, cuda))
+    want = fused_score.launch_counts(geo, 3, t_len, run)
+    assert run == 1 and want["k1_correlated"] > 2 * want["k1_offsets"]
     enqueue = [r for r in recs if r.name == "rx.enqueue"]
     assert len(enqueue) == 1 and enqueue[0].counts == want
     assert not any("k1_offsets" in r.counts for r in recs
@@ -914,7 +976,9 @@ def test_same_loopback_counts_and_reference(cuda):
     t_len = lb.build_loop(8192).t_total
     geo = geometry_from_config(cfg)
     assert fused_score.plane_rows(geo) == 5
-    want = fused_score.launch_counts(geo, 2, t_len)
+    want = fused_score.launch_counts(
+        geo, 2, t_len, fused_score.pick_run(
+            geo, 2, t_len, fused_score.card_slots(geo, cuda)))
     assert want["k1_offsets"] == 2 * t_len
     enqueue = [r for r in recs if r.name == "lb.enqueue"]
     assert len(enqueue) == 1 and enqueue[0].counts == want
