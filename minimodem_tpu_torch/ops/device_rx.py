@@ -429,11 +429,13 @@ class WireStager:
     fills one chunk while the chunks before it move by DMA on a copy
     stream, and the pad columns are set on the device to the encoding's
     silence (wire_pad), so no call allocates or fills a wire-sized host
-    buffer.  From PARALLEL_FILL_BYTES of samples up the host fills a
-    chunk with ATen's copy, on the process's intra-op threads, from a
-    tensor view of the samples; a smaller call, or a source torch cannot
-    view, keeps NumPy's copy.  On the CPU the chunks are plain memory
-    and the copies synchronous."""
+    buffer.  From PARALLEL_FILL_BYTES of samples up, with more than one
+    intra-op thread, the host fills a chunk with ATen's copy on those
+    threads, from a tensor view of the samples; a smaller call, a
+    process of one intra-op thread (a fleet rank as torchrun starts it:
+    there NumPy's copy is the faster and steadier) or a source torch
+    cannot view keeps NumPy's copy.  On the CPU the chunks are plain
+    memory and the copies synchronous."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -470,7 +472,7 @@ class WireStager:
         with self._lock, on:
             src = (_host_view(samples)
                    if b * m * samples.itemsize >= PARALLEL_FILL_BYTES
-                   else None)
+                   and torch.get_num_threads() > 1 else None)
             out = torch.empty((b, row), dtype=dtype, device=self.device)
             out[:, m:].fill_(wire_pad(in_encoding))
             for e0 in range(0, b * m, per):

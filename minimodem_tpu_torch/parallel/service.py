@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from ..config import ModemConfig
 from ..utils import device as _device
+from ..utils import trace as _trace
 from .sharding import gather_cat, make_mesh, rank_device, right_halo
 
 
@@ -190,38 +191,57 @@ class ShardedReceiver(_LazyMesh):
         r0 = mesh.get_local_rank("dp") * bl
         rows = max(0, min(b - r0, bl))
         n = max(0, min(L - c0, width))
-        # the rank's block through the device's stager; the ragged last
-        # dp rank's rows past the batch are silence, made on the device
+        # six spans over the call (utils/trace.py: recorded only under
+        # torch.profiler), the rx.* ones as MegaReceiver.run_events_batch
+        # names them.  The rank's block goes through the device's
+        # stager; the ragged last dp rank's rows past the batch are
+        # silence, made on the device
         stager = wire_stager(dev)
-        x, _ = stager.wire(samples[r0:r0 + rows, c0:c0 + n], width,
-                           in_encoding)
-        stager.join(x)
-        if rows < bl:
-            x = torch.nn.functional.pad(x, (0, 0, 0, bl - rows),
-                                        value=wire_pad(in_encoding))
-        tot = np.zeros((bl,), np.int32)
-        tot[:rows] = totals[r0:r0 + rows]
-        ci = torch.zeros((bl, 8), dtype=torch.int32, device=dev)
-        cf = torch.zeros((bl, 4), dtype=torch.float32, device=dev)
-        out = run(x, torch.from_numpy(tot).to(dev),
-                  (conf_threshold, conf_search_limit), ci, cf)
-        ev, n_ev = out[0], out[1]
-
-        # fleet stats from the records (EV codes: ops/device_rx.py; a
-        # NOCARRIER record's lanes 0-1 are nframes and conf_total)
-        live = (torch.arange(ev.shape[1], device=dev)[None, :]
-                < n_ev[:, None])
-        is_rep = live & (ev[:, :, 6] == EV_NOCARRIER)
-        nframes = torch.where(is_rep, ev[:, :, 0], 0)
-        conf = torch.where(is_rep, ev[:, :, 1].view(torch.float32), 0.0)
-        stats = torch.stack([n_ev.sum().double(), nframes.sum().double(),
-                             conf.sum(dtype=torch.float64)])
-        # sp ranks hold equal copies: reduce over dp only
-        dist.all_reduce(stats, group=mesh.get_group("dp"))
-        s = stats.cpu().numpy()
-
-        events = _gather_streams(_collect(out[:4], bl, self.compact),
-                                 mesh)[:b]
+        with _trace.span("rx.wire") as span:
+            x, chunks = stager.wire(samples[r0:r0 + rows, c0:c0 + n],
+                                    width, in_encoding)
+            span.count(bytes=x.nbytes, chunks=chunks)
+        with _trace.span("rx.upload") as span:
+            stager.join(x)
+            if rows < bl:
+                x = torch.nn.functional.pad(x, (0, 0, 0, bl - rows),
+                                            value=wire_pad(in_encoding))
+            tot = np.zeros((bl,), np.int32)
+            tot[:rows] = totals[r0:r0 + rows]
+            ci = torch.zeros((bl, 8), dtype=torch.int32, device=dev)
+            cf = torch.zeros((bl, 4), dtype=torch.float32, device=dev)
+            tot_d = torch.from_numpy(tot).to(dev)
+            span.count(bytes=tot.nbytes)    # the carry is made on the card
+        with _trace.span("rx.enqueue"):
+            out = run(x, tot_d, (conf_threshold, conf_search_limit), ci,
+                      cf)
+            ev, n_ev = out[0], out[1]
+            # fleet stats from the records (EV codes: ops/device_rx.py; a
+            # NOCARRIER record's lanes 0-1 are nframes and conf_total)
+            live = (torch.arange(ev.shape[1], device=dev)[None, :]
+                    < n_ev[:, None])
+            is_rep = live & (ev[:, :, 6] == EV_NOCARRIER)
+            nframes = torch.where(is_rep, ev[:, :, 0], 0)
+            conf = torch.where(is_rep, ev[:, :, 1].view(torch.float32),
+                               0.0)
+            stats = torch.stack([n_ev.sum().double(),
+                                 nframes.sum().double(),
+                                 conf.sum(dtype=torch.float64)])
+        # the reduce's .cpu() waits for this rank's card and, through the
+        # collective, for the slowest rank of the group
+        group = mesh.get_group("dp")
+        with _trace.span("fleet.reduce") as span:
+            # sp ranks hold equal copies: reduce over dp only
+            dist.all_reduce(stats, group=group)
+            s = stats.cpu().numpy()
+            span.count(ranks=dist.get_world_size(group))
+        with _trace.span("rx.collect"):
+            local = _collect(out[:4], bl, self.compact)
+        with _trace.span("fleet.gather") as span:
+            if _trace.enabled():
+                span.count(streams=len(local),
+                          bytes=sum(a.nbytes for e in local for a in e))
+            events = _gather_streams(local, mesh)[:b]
         return events, {
             "devices": dp,
             "events_total": int(s[0]),

@@ -18,6 +18,10 @@ tests/test_torch_loopback.py); decode_batch returns the sent texts;
 frames_total and events_total equal JAX's, mean_confidence within
 relative MEAN_RTOL (a float sum in another order: JAX's float32 psum,
 the port's float64 all_reduce).
+
+In the same world: the six spans of a u-law call on every rank, and its
+decode of channels made by the benchmark's tones against the benchmark's
+plain reference (mmbench/reference/), bit for bit.
 """
 
 import numpy as np
@@ -291,3 +295,73 @@ def test_errors_match_jax(port, jax_fleet):
         jax_fleet(1, 4, "1").run_events_batch(np.zeros((1, 100), np.float32),
                                               [100])
     assert errs["halo_sp"] == ("ValueError", str(e.value))
+
+
+@pytest.mark.parametrize("name,dp,sp", [("spans_dp4", 4, 1),
+                                        ("spans_sp22", 2, 2)])
+def test_fleet_call_records_its_six_spans(port, name, dp, sp):
+    """Under torch.profiler one u-law call records on every rank the six
+    spans in call order: rx.wire's bytes are the rank block's wire (rows
+    x width u-law bytes), rx.upload's the totals, fleet.reduce's
+    ranks the dp group's size, fleet.gather's streams and bytes the
+    rank's rows and their event and byte arrays.  Outside a profiler the
+    same call records nothing."""
+    from minimodem_tpu_torch.ops.device_rx import (
+        STAGE_CHUNK_BYTES, _round_up_pow2, device_rx_key, geo_from_key)
+
+    x, _ = F.ulaw_channels()
+    events = case(port, "ulaw_ref_dp4")["events"]
+    cfg = F.modem().cfg
+    need = x.shape[1] + cfg.nsamples_overscan + 1
+    width = (_round_up_pow2(need) + geo_from_key(device_rx_key(cfg)).halo
+             if sp == 1 else _round_up_pow2(-(-need // sp)))
+    rows = len(x) // dp
+    ranks = case(port, name)
+    assert len(ranks) == 4
+    for rank, (on, off) in enumerate(ranks):
+        assert [n for n, _ in on] == list(F.FLEET_SPANS), rank
+        c = dict(on)
+        assert c["rx.wire"]["bytes"] == rows * width
+        # the shard's u-law bytes of samples, in 4 MiB chunks (none where
+        # the last sp shard lies past the samples)
+        cols = max(0, min(x.shape[1] - rank % sp * (width if sp > 1 else 0),
+                          width))
+        assert c["rx.wire"]["chunks"] == -(-rows * cols // STAGE_CHUNK_BYTES)
+        assert c["rx.upload"]["bytes"] == rows * 4     # the int32 totals
+        assert c["fleet.reduce"]["ranks"] == dp
+        assert c["fleet.gather"]["streams"] == rows
+        mine = events[rank // sp * rows:(rank // sp + 1) * rows]
+        assert c["fleet.gather"]["bytes"] == sum(a.nbytes for e in mine
+                                                 for a in e)
+        assert off == 0
+
+
+def test_ulaw_fleet_equals_the_benchmarks_reference(port):
+    """dp = 4 on 8 seeded u-law Bell-202 channels made by the benchmark's
+    tones: every rank's events and bytes equal the benchmark's plain
+    reference (g711.ulaw_expand, the score planes in float32, the state
+    machine; no kernel of the port) event for event and byte for byte,
+    and the bytes are the keyed ones."""
+    from mmbench.drivers import _common
+    from mmbench.reference import g711
+    from mmbench.reference import modem as ref_modem
+
+    x, pay = F.ulaw_channels()
+    g = F.bell202_geometry()
+    n = x.shape[1]
+    t_total = ref_modem.round_up_bucket(n + g.overscan + 1)
+    xf = np.zeros((len(x), t_total + g.halo), np.float32)
+    xf[:, :n] = g711.ulaw_expand(x)
+    ref = _common.ref_decode(_common.ref_planes(xf, g, t_total, "cpu"), g,
+                             t_total, [n] * len(x), True, F.THR, F.LIM)
+    case(port, "ulaw_ref_dp4")
+    for rank in range(4):
+        got = port[rank]["ulaw_ref_dp4"]["events"]
+        np.testing.assert_array_equal(port[rank]["ulaw_ref_dp4"]["x"], x)
+        assert len(got) == len(ref) == 8
+        for e, r in zip(got, ref):
+            assert len(e) == len(r) == 3
+            for a, b in zip(e, r):
+                assert a.dtype == b.dtype and np.array_equal(a, b)
+        for e, p in zip(got, pay):
+            assert e[2].tobytes() == p.tobytes()

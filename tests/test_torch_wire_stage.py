@@ -13,10 +13,11 @@ B = 16; and a long call followed by a short one through the same
 chunks.  The chunks are allocated once (the trace's `alloc_bytes`) and
 reused after.
 
-From PARALLEL_FILL_BYTES of samples up the host fills the chunks with
-ATen's copy from a tensor view of the samples (the trace's
-`parallel_bytes`, the bytes so filled), below it and where torch cannot
-view them with NumPy's.  Sources: contiguous, read-only (a WAV reader's
+From PARALLEL_FILL_BYTES of samples up, with more than one intra-op
+thread, the host fills the chunks with ATen's copy from a tensor view of
+the samples (the trace's `parallel_bytes`, the bytes so filled); below
+it, at one intra-op thread and where torch cannot view them with
+NumPy's.  Sources: contiguous, read-only (a WAV reader's
 np.frombuffer: no warning, no copy), column-strided, and negative-stride
 (NumPy's fill, `parallel_bytes` 0); at the small chunks above with every
 call through ATen's copy, and at the real 4 MiB chunk and threshold on
@@ -130,7 +131,7 @@ def _call(stager, enc, b, n, row, seed, layout=None):
     if isinstance(sp, trace.Record):
         n_bytes = b * m * x.itemsize
         assert sp.counts.get("parallel_bytes", 0) == (
-            0 if layout == "reversed"
+            0 if layout == "reversed" or torch.get_num_threads() == 1
             or n_bytes < device_rx.PARALLEL_FILL_BYTES else n_bytes)
 
 
@@ -209,6 +210,27 @@ def test_staged_wire_at_the_real_chunk(call):
         trace.clear()
     finally:
         torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("threads", [1, 2])
+def test_one_intra_op_thread_keeps_numpys_fill(threads):
+    """At the real chunk and threshold a process of one intra-op thread
+    (a fleet rank as torchrun starts it) fills through NumPy's copy
+    (`parallel_bytes` 0), two threads through ATen's; the wire is the
+    host wire either way."""
+    intra = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        stager = device_rx.WireStager(torch.device("cpu"))
+        trace.clear()
+        with profile(activities=[ProfilerActivity.CPU]):
+            _call(stager, "ulaw", 4, 1_200_000, 1 << 21, 0)
+        rec = [r for r in trace.records() if r.name == "call"]
+        trace.clear()
+    finally:
+        torch.set_num_threads(intra)
+    assert rec[0].counts.get("parallel_bytes", 0) == (
+        0 if threads == 1 else 4 * 1_200_000)
 
 
 def test_read_only_source_warns_nothing_in_a_fresh_process():

@@ -1,16 +1,26 @@
 """The port's side of the fleet parity tests (test_torch_service.py,
 test_torch_sharding.py): the cases run on every rank of a world of gloo
 processes on the CPU (minimodem_tpu_torch/parallel/launch.py
-spawn_world), which import torch and the port only and send numpy results
+spawn_world), which import torch, the port and the benchmark's tone
+makers (mmbench/: neither JAX nor the JAX package) and send numpy results
 back.  The inputs are made here, by the port's host TX (the JAX
-package's code, copied), so the JAX side of a test reads the same arrays.
+package's code, copied), so the JAX side of a test reads the same arrays;
+the u-law channels of the fleet's span and reference cases as the
+benchmark's fleet driver makes them (ulaw_channels).
 """
 
+import json
 import traceback
+from pathlib import Path
 
 import numpy as np
 
 SEED = 1200
+ULAW_SEED = 2**33 + 41
+ROOT = Path(__file__).resolve().parents[1]
+# the six spans of a ShardedReceiver call, in call order
+FLEET_SPANS = ("rx.wire", "rx.upload", "rx.enqueue", "fleet.reduce",
+               "rx.collect", "fleet.gather")
 THR, LIM = 1.5, 2.3
 
 TEXTS = {
@@ -66,6 +76,59 @@ def schedules(mode="1200"):
     return [tx_bit_schedule(p, cfg, Ascii8Codec()) for p in TEXTS["loopback"]]
 
 
+def bell202_geometry():
+    """The benchmark's Bell-202 configuration as its plain reference sees
+    it (mmbench/reference/modem.py)."""
+    from mmbench.reference import modem as ref_modem
+
+    return ref_modem.geometry(json.loads(
+        (ROOT / "mmbench/configs/bell202.json").read_text()))
+
+
+def ulaw_channels(rows=8, nbytes=12, seed=ULAW_SEED):
+    """rows seeded Bell-202 channels on the u-law wire as the benchmark's
+    fleet driver (mmbench/drivers/fleet.py) makes them, short: 20 ms of
+    silence, nbytes printable 8-N-1 bytes, 20 ms of silence, uniform
+    noise 0.3, PCM16, G.711 u-law (mmbench/tones.py).  -> (uint8 [rows,
+    n], the bytes [rows, nbytes])."""
+    import torch
+
+    from mmbench import tones
+    from mmbench.reference import synth
+
+    g = bell202_geometry()
+    pay = np.random.default_rng(seed).integers(32, 127, (rows, nbytes),
+                                               dtype=np.uint8)
+    a = torch.cat([tones.silence(rows, 0.02, g, "cpu"),
+                   tones.keyed_audio(synth.bit_schedules(pay, g), g, "cpu"),
+                   tones.silence(rows, 0.02, g, "cpu")], dim=1)
+    return tones.ulaw_encode(tones.noisy_pcm16(
+        a, tones.generator(seed, "cpu"), 0.3, host=False)), pay
+
+
+def fleet_spans(svc, x) -> list:
+    """Every rank's spans of one u-law call of `svc` under torch.profiler
+    (name and counts, in start order) and the count of records the same
+    call leaves outside one, gathered so every rank returns them all."""
+    import torch
+    import torch.distributed as dist
+
+    from minimodem_tpu_torch.utils import trace
+
+    totals = [x.shape[1]] * len(x)
+    trace.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        svc.run_events_batch(x, totals, THR, LIM, in_encoding="ulaw")
+    on = [(r.name, dict(r.counts)) for r in trace.records()]
+    trace.clear()
+    svc.run_events_batch(x, totals, THR, LIM, in_encoding="ulaw")
+    off = len(trace.records())
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, (on, off))
+    return parts
+
+
 def step_samples(n_streams, t_len):
     """Noisy Bell-202 rows for the sharded scoring step: the text of
     TEXTS["sp"][0] plus uniform noise of amplitude 0.3 (finite
@@ -119,6 +182,8 @@ def service_world() -> dict:
         return svc(mesh, mode, **kw).run_events_batch(
             x, totals, THR, LIM, in_encoding=enc if enc == "ulaw" else None)
 
+    x_ulaw, _ = ulaw_channels()
+
     def compact_vs_wide():
         return {c: (svc(mesh4, compact=c).decode_batch(streams("three")),
                     events(mesh4, "three", compact=c)[0])
@@ -141,6 +206,12 @@ def service_world() -> dict:
         "loopback_dp4": lambda: ShardedLoopback(
             cfg, mesh4, device="cpu").run_events_batch(schedules()),
         "padding_dp4": lambda: svc(mesh4).decode_batch(streams("pad")),
+        "ulaw_ref_dp4": lambda: {
+            "x": x_ulaw, "events": svc(mesh4).run_events_batch(
+                x_ulaw, [x_ulaw.shape[1]] * len(x_ulaw), THR, LIM,
+                in_encoding="ulaw")[0]},
+        "spans_dp4": lambda: fleet_spans(svc(mesh4), x_ulaw),
+        "spans_sp22": lambda: fleet_spans(svc(mesh22), x_ulaw),
         "errors": lambda: {
             "loopback_sp": _error(lambda: ShardedLoopback(cfg, mesh22,
                                                           device="cpu")),
